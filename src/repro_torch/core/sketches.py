@@ -276,3 +276,30 @@ def build_sketches(
                 ndv, dv_freq, hh_stats, hh_items, ghh, bitmap,
             )
     return TableSketches(table.name, n, table.rows_per_partition, cols)
+
+
+class SketchStore:
+    """Version-tracked sketch holder for one table.
+
+    Builds the sketches at construction and hands them out through
+    `sketches()`, which rebuilds them in full (`build_sketches`, counted in
+    ``full_rebuilds``) whenever the table's version moved.  The reference
+    folds appends and partition moves in incrementally instead; its folds
+    are bit-equal to a cold build, so the sketches are the same either
+    way.  The folds come with the streaming slice.
+    """
+
+    def __init__(self, table: Table, *, options: ExecOptions | None = None):
+        self.table = table
+        self.options = options if options is not None else ExecOptions()
+        self.full_rebuilds = 0
+        self._sk = build_sketches(table, options=self.options)
+        self._version = table.version
+
+    def sketches(self) -> TableSketches:
+        """The current table's sketches."""
+        if self.table.version != self._version:
+            self.full_rebuilds += 1
+            self._sk = build_sketches(self.table, options=self.options)
+            self._version = self.table.version
+        return self._sk

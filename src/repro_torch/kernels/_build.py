@@ -32,7 +32,7 @@ from repro_torch.kernels.telemetry import TraceRegistry
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("eval", "ingest")
+SOURCES = ("eval", "ingest", "pdist", "tree_hist")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,6 +59,16 @@ SIGNATURES = {
         "repro_histogram_range": (_P, _P, _P, _I, _I, _I, _P),
         # codes, out, P, R, card, stream
         "repro_bincount": (_P, _P, _I, _I, _I, _P),
+    },
+    "pdist": {
+        # x, centers, out, N, K, F, stream
+        "repro_pdist_sq": (_P,) * 3 + (_I,) * 3 + (_P,),
+    },
+    "tree_hist": {
+        # codes_t, feat_ids, node, g, h, out, R, C, nodes, F, B, stream
+        "repro_tree_hist": (_P,) * 6 + (_I,) * 5 + (_P,),
+        # x, out, M, L, stream
+        "repro_cumsum_seq": (_P, _P, _I, _I, _P),
     },
 }
 

@@ -18,11 +18,15 @@ Two execution backends with identical semantics (see `repro_torch.backends`):
 `EvalCache` carries the workload-invariant intermediates (group codes per
 group-by tuple, per-column float casts, per-aggregate projections) so a
 training workload or serving batch never recomputes them per query.
+`AnswerStore` caches whole answers (and the planner's partial answers)
+per query.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
+import time
 
 import numpy as np
 import torch
@@ -185,6 +189,22 @@ class PartitionAnswers:
         safe = np.where(np.abs(total) > 1e-12, total, np.inf)
         ratios = np.abs(self.raw) / np.abs(safe)  # (N, G, n_raw)
         return ratios.max(axis=(1, 2)) if ratios.size else np.zeros(self.raw.shape[0])
+
+
+def query_key(query: Query) -> str:
+    """Canonical cache key for a query (stable across equal IR values)."""
+    return query.describe()
+
+
+def subset_fingerprint(part_ids: np.ndarray) -> str:
+    """Canonical fingerprint of an ordered partition-id subset.
+
+    Partial (subset) answers are keyed by ``(query_key, this)`` — the
+    planner's escalation rounds each read a different subset of the same
+    query, and an answer for a smaller round must never be served as the
+    answer for a larger one (or as the full-table answer)."""
+    ids = np.ascontiguousarray(np.asarray(part_ids, dtype=np.int64))
+    return hashlib.sha1(ids.tobytes()).hexdigest()
 
 
 # --------------------------------------------------------------------------
@@ -468,6 +488,198 @@ class EvalCache:
             while len(self._proj) > self.PROJ_CAPACITY:
                 self._proj.pop(next(iter(self._proj)))
             return hit
+
+
+class AnswerStore:
+    """Bounded LRU cache of PartitionAnswers keyed by `query_key`.
+
+    One exact per-partition evaluation per distinct query text — repeated
+    queries (dashboards re-issuing the same panel) hit the cache instead
+    of rescanning the table.  Misses in `get_batch` are evaluated together
+    through `per_partition_answers_batch`, so a cold batch costs one
+    stacked device pass, not Q rescans.
+
+    **Mutations.**  Any table version bump drops every entry; the next
+    access re-evaluates.  (The reference folds pure appends and partition
+    moves into the held answers instead; its folds are bit-equal to a
+    cold evaluation, so the answers are the same either way — only the
+    hit/miss counters differ.  The folds come with the streaming slice.)
+
+    **Partial answers (planner escalation rounds).**  `get_subset`
+    evaluates one query over an explicit partition-id subset and caches
+    the result in a *separate* LRU keyed by ``(query_key,
+    subset_fingerprint)`` — the full-answer cache is keyed by query text
+    alone, so without the subset half of the key an escalation round's
+    partial answer could be served where the full answer (or a larger
+    round's) is expected.
+
+    ``ttl`` (seconds on ``clock``, default `time.monotonic`) bounds how long
+    an entry may serve; an expired entry is re-evaluated on access and
+    counted in ``ttl_expired``.
+    """
+
+    def __init__(self, table: Table, capacity: int = 256, *,
+                 options: ExecOptions | None = None,
+                 ttl: float | None = None, clock=None):
+        self.table = table
+        self.capacity = int(capacity)
+        self.options = options if options is not None else ExecOptions()
+        self._cache: dict[str, PartitionAnswers] = {}
+        self._partial: dict[tuple[str, str], PartitionAnswers] = {}
+        self._eval_cache = EvalCache(table, options=self.options)
+        self._version = table.version
+        self.ttl = None if ttl is None else float(ttl)
+        if self.ttl is not None and self.ttl <= 0:
+            raise ValueError(f"AnswerStore ttl must be positive, got {ttl}")
+        self._clock = clock if clock is not None else time.monotonic
+        self._born: dict[str, float] = {}
+        self._partial_born: dict[tuple[str, str], float] = {}
+        self.ttl_expired = 0
+        # concurrent readers may share a store; the re-entrant lock
+        # serializes every mutation path (LRU re-insert, invalidation)
+        self._lock = threading.RLock()
+        self.hits = 0
+        self.misses = 0
+
+    def _sync(self) -> None:
+        # raises on out-of-band mutation (fingerprint, forced at this
+        # batch boundary) and keeps the device stack current
+        self._eval_cache._sync()
+        self._eval_cache.check_fingerprint()
+        if self.table.version == self._version:
+            return
+        self._cache.clear()
+        self._partial.clear()
+        self._born.clear()
+        self._partial_born.clear()
+        self._version = self.table.version
+
+    def _expired(self, born: float | None) -> bool:
+        if self.ttl is None or born is None:
+            return False
+        return (self._clock() - born) > self.ttl
+
+    def _drop_expired(self, key: str) -> bool:
+        """Evict ``key`` from the full cache if past max-age; True if so."""
+        if self._expired(self._born.get(key)):
+            self._cache.pop(key, None)
+            self._born.pop(key, None)
+            self.ttl_expired += 1
+            return True
+        return False
+
+    def get(self, query: Query) -> PartitionAnswers:
+        with self._lock:
+            self._sync()
+            key = query_key(query)
+            self._drop_expired(key)
+            hit = self._cache.pop(key, None)
+            if hit is not None:
+                self.hits += 1
+                self._cache[key] = hit  # re-insert = most recently used
+                return hit
+            self.misses += 1
+            ans = per_partition_answers(
+                self.table, query, cache=self._eval_cache, options=self.options
+            )
+            self._insert(key, ans)
+            return ans
+
+    def get_subset(self, query: Query, part_ids: np.ndarray) -> PartitionAnswers:
+        """Exact answers for one query restricted to ``part_ids`` (raw rows
+        in that order) — the planner's escalation-round read path.
+
+        Cached under ``(query_key, subset_fingerprint)`` in a partial-answer
+        LRU that is disjoint from the full-answer cache by construction.
+        When the full answer happens to be held, the subset is sliced from
+        it for free; otherwise the subset's partitions are gathered into a
+        table of their own and evaluated.
+        """
+        with self._lock:
+            self._sync()
+            ids = np.asarray(part_ids, dtype=np.int64)
+            key = (query_key(query), subset_fingerprint(ids))
+            if self._expired(self._partial_born.get(key)):
+                self._partial.pop(key, None)
+                self._partial_born.pop(key, None)
+                self.ttl_expired += 1
+            hit = self._partial.pop(key, None)
+            if hit is not None:
+                self.hits += 1
+                self._partial[key] = hit  # re-insert = most recently used
+                return hit
+            self._drop_expired(key[0])
+            full = self._cache.get(key[0])
+            if full is not None:
+                self.hits += 1
+                ans = PartitionAnswers(query, full.group_keys, full.raw[ids], full.plans)
+            else:
+                self.misses += 1
+                t = self.table
+                with record_function("answers.subset_gather"):
+                    cols = {k: v[ids] for k, v in t.columns.items()}
+                    view = Table(t.schema, cols, name=f"{t.name}/subset")
+                ans = per_partition_answers(
+                    view, query, cache=EvalCache(view, options=self.options),
+                    options=self.options,
+                )
+            self._partial[key] = ans
+            self._partial_born[key] = self._clock()
+            while len(self._partial) > self.capacity:
+                old = next(iter(self._partial))
+                self._partial.pop(old)
+                self._partial_born.pop(old, None)
+            return ans
+
+    def get_batch(self, queries: list[Query]) -> list[PartitionAnswers]:
+        """Answers for a batch; all misses evaluated in one stacked pass."""
+        with self._lock:
+            self._sync()
+            keys = [query_key(q) for q in queries]
+            # snapshot every held answer up front: the re-insertions below
+            # may evict an entry before its position in the batch is reached
+            held: dict[str, PartitionAnswers] = {}
+            missing: dict[str, Query] = {}
+            for q, key in zip(queries, keys):
+                if key in held or key in missing:
+                    continue
+                self._drop_expired(key)
+                hit = self._cache.get(key)
+                if hit is not None:
+                    held[key] = hit
+                else:
+                    missing[key] = q
+            fresh: dict[str, PartitionAnswers] = {}
+            if missing:
+                evaluated = per_partition_answers_batch(
+                    self.table, list(missing.values()),
+                    cache=self._eval_cache, options=self.options,
+                )
+                fresh = dict(zip(missing.keys(), evaluated))
+            out: list[PartitionAnswers] = []
+            for key in keys:
+                hit = self._cache.pop(key, None)
+                if key in held:
+                    hit = held[key]
+                if hit is not None:
+                    self.hits += 1
+                else:
+                    self.misses += 1
+                    hit = fresh[key]
+                self._insert(key, hit)
+                out.append(hit)
+            return out
+
+    def _insert(self, key: str, ans: PartitionAnswers) -> None:
+        self._cache[key] = ans
+        self._born.setdefault(key, self._clock())
+        while len(self._cache) > self.capacity:
+            old = next(iter(self._cache))
+            self._cache.pop(old)
+            self._born.pop(old, None)
+
+    def __len__(self) -> int:
+        return len(self._cache)
 
 
 def _answers_from_raw(

@@ -6,10 +6,13 @@ runs on a GPU host without JAX).  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Counts, histograms and bincounts must be bit-equal to the plain
-versions; f32 sums agree to the reference's own tolerance (rtol 1e-5,
-atol 1e-4 — the summation order differs), and every kernel must give
-the same bits on a second run (no float atomics).
+Counts, histograms, bincounts, GBDT histograms and their prefix sums
+must be bit-equal to the plain versions; f32 sums agree to the
+reference's own tolerance (rtol 1e-5, atol 1e-4 — the summation order
+differs), pairwise distances at rtol 1e-4, atol 1e-3 with the same
+nearest centers, and every kernel must give the same bits on a second
+run (no float atomics).  The device GBDT fit on the card exports the
+host fit's forest bit for bit.
 """
 import numpy as np
 import pytest
@@ -18,7 +21,8 @@ import torch
 from repro_torch.backends import ExecOptions
 from repro_torch.core.sketches import build_sketches
 from repro_torch.data.datasets import make_dataset
-from repro_torch.kernels import _build, fused, groupagg, histogram, moments
+from repro_torch.core import clustering, gbdt
+from repro_torch.kernels import _build, fused, groupagg, histogram, moments, pdist, tree_hist
 from repro_torch.queries import device
 from repro_torch.queries.engine import EvalCache, per_partition_answers_batch
 from repro_torch.queries.generator import WorkloadSpec
@@ -171,3 +175,76 @@ def test_driver_on_cuda_matches_host(cuda):
         np.testing.assert_array_equal(d.hh_stats, cs.hh_stats)
         if cs.cat_counts is not None:
             np.testing.assert_array_equal(d.cat_counts, cs.cat_counts)
+
+
+# --------------------------------------------------------------------------
+# the picker's kernels: tree_hist, cumsum_seq (bit-equal), pdist_sq
+# --------------------------------------------------------------------------
+def _bits(t):
+    return t.cpu().numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("r,c,nn,f,nbins", [(300, 4, 8, 9, 256), (1024, 3, 16, 5, 256),
+                                            (513, 1, 1, 2, 256), (5000, 7, 32, 11, 256),
+                                            (777, 1, 32, 1, 1)])
+def test_tree_hist_matches_plain_bitwise(cuda, r, c, nn, f, nbins):
+    rng = np.random.default_rng(r)
+    codes_t = torch.from_numpy(rng.integers(0, nbins, size=(c, r), dtype=np.int32)).to(cuda)
+    fids = torch.from_numpy(np.sort(rng.choice(f, size=c, replace=False)).astype(np.int32))
+    node = torch.from_numpy(rng.integers(-1, nn, size=r).astype(np.int32))
+    g = torch.from_numpy((rng.normal(size=r) * 10.0 ** rng.integers(-3, 4, size=r))
+                         .astype(np.float32))
+    h = torch.from_numpy(np.abs(rng.normal(size=r)).astype(np.float32))
+    args = (codes_t.T, fids.to(cuda), node.to(cuda), g.to(cuda), h.to(cuda), nn, f, nbins)
+    got = tree_hist.tree_hist(*args)
+    again = tree_hist.tree_hist(*args)
+    want = tree_hist.tree_hist_plain(*args)
+    np.testing.assert_array_equal(_bits(got), _bits(again))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    unsampled = np.setdiff1d(np.arange(f), fids.numpy())
+    assert not got[:, :, torch.from_numpy(unsampled).to(cuda)].any()
+
+
+@pytest.mark.parametrize("shape", [(3, 256), (2, 16, 476, 256), (70, 1000)])
+def test_cumsum_seq_matches_plain_bitwise(cuda, shape):
+    rng = np.random.default_rng(len(shape))
+    x = torch.from_numpy((rng.normal(size=shape) * 1e3).astype(np.float32)).to(cuda)
+    got = tree_hist.cumsum_seq(x)
+    want = tree_hist.cumsum_seq_plain(x)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(_bits(got), np.cumsum(x.cpu().numpy(), axis=-1).view(np.uint32))
+
+
+@pytest.mark.parametrize("n,k,f", [(16, 4, 8), (100, 13, 37), (256, 128, 130), (33, 5, 300),
+                                   (1024, 256, 476)])
+def test_pdist_sq_matches_plain(cuda, n, k, f):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.normal(size=(k, f)).astype(np.float32)).to(cuda)
+    got = pdist.pdist_sq(x, c)
+    assert torch.equal(got, pdist.pdist_sq(x, c))
+    want = pdist.pdist_sq_plain(x, c)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-3)
+    assert torch.equal(got.argmin(dim=1), want.argmin(dim=1))
+
+
+def test_device_fit_on_cuda_matches_host_fit(cuda):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3000, 12))
+    y = x @ rng.normal(size=12) + np.sin(x[:, 0] * 3)
+    kw = dict(num_trees=6, depth=5, rowsample=0.5, colsample=0.7, seed=2)
+    dev = gbdt.fit_gbdt(x, y, options=ExecOptions(device=str(cuda)), **kw)
+    host = gbdt.fit_gbdt(x, y, options=ExecOptions(backend="host"), **kw)
+    np.testing.assert_array_equal(dev.feat, host.feat)
+    np.testing.assert_array_equal(dev.thr, host.thr)
+    np.testing.assert_array_equal(dev.leaf.view(np.uint32), host.leaf.view(np.uint32))
+
+
+def test_kmeans_on_cuda_selects_like_cpu(cuda):
+    rng = np.random.default_rng(1)
+    centers = rng.normal(size=(9, 16)) * 10
+    x = (centers[rng.integers(0, 9, size=300)] + rng.normal(size=(300, 16))).astype(np.float32)
+    got = clustering.kmeans_select(x, 20, device=str(cuda))
+    want = clustering.kmeans_select(x, 20, device="cpu")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

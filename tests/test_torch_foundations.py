@@ -9,6 +9,7 @@
 """
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -109,4 +110,14 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", BLOCKER], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the port was imported
+    assert int(out.stdout.strip()) >= 30  # every module of the port was imported
+
+
+def test_port_sources_import_neither_jax_nor_reference():
+    """Also the imports inside functions, which importing a module skips."""
+    pattern = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)", re.M)
+    sources = sorted((SRC / "repro_torch").rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    hits = [f"{p}: {m.group(0).strip()}" for p in sources
+            for m in pattern.finditer(p.read_text())]
+    assert not hits, hits
+    assert len(sources) >= 30
