@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--partitions 1024] [--rows 16384] [--queries 48]
-                          [--held-out 16] [--offline-partitions 256] [--seed 0]
+                          [--held-out 16] [--offline-partitions 256]
+                          [--append-partitions 16] [--appends 6] [--seed 0]
 
 Phases, each fatal on failure:
 
@@ -28,7 +29,17 @@ Phases, each fatal on failure:
    against the exact answers, beside a 5%-uniform partition sample;
 6. the first trees of the first funnel model fitted again on the card
    and on the host: the forests must be bit-equal;
-7. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
+7. the streaming append path on the same prepared Session: the training
+   answers cached, a warm-up append that overflows the device stack's
+   partition bucket, then ``--appends`` appends of ``--append-partitions``
+   partitions each folded into the sketches and every cached answer
+   (profiled), held-out executes on the grown table, ``predicate_mask_device``
+   against the host mask for every held-out query, and a cold rebuild of
+   sketches and answers that the folded ones must equal bit for bit;
+8. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
+   Each kernel's ``session_launches`` and ``stream_launches`` count its
+   launches in the Session path and in the streaming path, and
+   ``launches`` is their sum.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -62,8 +73,11 @@ SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
     # the reference's prefix sum is an XLA loop, not a Pallas kernel
     "cumsum_seq": ("src/repro_torch/csrc/tree_hist.cu", "src/repro/core/gbdt.py:321"),
     "pdist_sq": ("src/repro_torch/csrc/pdist.cu", "src/repro/kernels/pdist.py:53"),
+    "predicate_eval": ("src/repro_torch/csrc/predicate.cu", "src/repro/kernels/predicate.py:79"),
 }
 OFFLINE_KERNELS = ("fused_eval", "group_aggregate", "moments", "histogram_range", "bincount")
+SESSION_KERNELS = tuple(k for k in SOURCES if k != "predicate_eval")
+STREAM_KERNELS = ("fused_eval", "moments", "histogram_range", "bincount", "predicate_eval")
 
 
 def parse_args(argv=None):
@@ -73,6 +87,8 @@ def parse_args(argv=None):
     ap.add_argument("--queries", type=int, default=48)
     ap.add_argument("--held-out", type=int, default=16)
     ap.add_argument("--offline-partitions", type=int, default=256)
+    ap.add_argument("--append-partitions", type=int, default=16)
+    ap.add_argument("--appends", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -116,6 +132,7 @@ class Case:
     ops: float
     library: tuple | None  # (description, fn) of one PyTorch call, or None
     shape: str
+    record: bool = True  # False: a second case of a kernel, checked and printed only
 
 
 # --------------------------------------------------------------------------
@@ -124,12 +141,15 @@ class Case:
 def kernel_cases(table, queries, dev) -> list[Case]:
     """The offline plane's kernels with the operands the main path hands
     them: one numeric and one categorical column of the table, and the
-    first stacked chunk of each eval kernel in the workload's launch order."""
+    first stacked chunk of each eval kernel in the workload's launch order;
+    predicate_eval on the clauses of the workload query with the most of
+    them, with the shared (C, G) map that `predicate_mask_device` passes
+    and again with per-partition bounds and a (P, C, G) map."""
     import numpy as np
     import torch
 
     from repro_torch.backends import ExecOptions
-    from repro_torch.kernels import fused, groupagg, histogram, moments
+    from repro_torch.kernels import fused, groupagg, histogram, moments, predicate
     from repro_torch.queries import device
     from repro_torch.queries.engine import EvalCache
 
@@ -210,6 +230,25 @@ def kernel_cases(table, queries, dev) -> list[Case]:
         plain = fused.fused_eval_plain if name == "fused_eval" else groupagg.group_aggregate_plain
         shape = "x".join(str(s) for s in args[0].shape) + f", radix {radix}"
         cases.append(Case(name, kernel, plain, args, "sums", nbytes, ops, library, shape))
+
+    canon = max((device.canonicalize_predicate(table, q.predicate, cache) for q in queries),
+                key=lambda c: -1 if c is None else len(c.cols))
+    cols, lo, hi, gmap, ng = device.predicate_call(canon, cache)
+    c = cols.shape[1]
+    for per_partition in (False, True):
+        if per_partition:  # the stacked-query form: bounds and map per partition row
+            lo, hi = lo.expand(p, c).contiguous(), hi.expand(p, c).contiguous()
+            gmap = gmap.expand(p, c, ng).contiguous()
+        # bytes: every clause column and descriptor read once, the mask and
+        # the count written once; ops: two compares a clause, one test a group
+        nbytes = sum(t.numel() * 4 for t in (cols, lo, hi, gmap)) + p * r * 4 + p * 4
+        cases.append(Case(
+            "predicate_eval", predicate.predicate_eval,
+            lambda *a: predicate.predicate_eval_plain(*a[:4]),
+            (cols, lo, hi, gmap, ng), "bits", nbytes, 2 * cols.numel() + p * r * ng, None,
+            f"{p}x{c}x{r}, {ng} OR-groups of {len(canon.cols)} clauses, "
+            + ("per-partition bounds, (P, C, G) map" if per_partition else "(C, G) map"),
+            record=not per_partition))
     return cases
 
 
@@ -269,11 +308,20 @@ def picker_cases(n_rows: int, n_feat: int, n_partitions: int, dev, seed: int) ->
     return cases
 
 
+def parts(out) -> tuple:
+    """A kernel's outputs as a tuple of tensors."""
+    return out if isinstance(out, tuple) else (out,)
+
+
 def compare(got, want, tol) -> float:
     """Max abs error; raises unless bit-equal ("bits"), counts bit-equal and
     sums allclose(1e-5, 1e-4) ("sums"), allclose(2e-5, 2e-4) ("close":
-    moments), or allclose at an explicit (rtol, atol)."""
+    moments), or allclose at an explicit (rtol, atol).  Kernels with
+    several outputs are held output by output."""
     import numpy as np
+
+    if isinstance(got, tuple):
+        return max(compare(g, w, tol) for g, w in zip(got, parts(want)))
 
     g, w = got.cpu().numpy(), want.cpu().numpy()
     if tol == "bits":
@@ -308,7 +356,8 @@ def run_kernel_phase(cases: list[Case]) -> dict:
         again = kernel(*args)
         want = plain(*args)
         torch.cuda.synchronize()
-        if not torch.equal(got.nan_to_num(), again.nan_to_num()):
+        if not all(torch.equal(a.nan_to_num(), b.nan_to_num())
+                   for a, b in zip(parts(got), parts(again))):
             raise AssertionError(f"{name}: two runs gave different bits")
         err = compare(got, want, case.tol)
         extra = ""
@@ -327,6 +376,8 @@ def run_kernel_phase(cases: list[Case]) -> dict:
               f"({bound_by}), library "
               f"{'%.4f ms (%s)' % (lib_ms, case.library[0]) if case.library else 'none'}",
               flush=True)
+        if not case.record:
+            continue
         src, replaces = SOURCES[name]
         records[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -431,7 +482,8 @@ def planned_errors(planned, truth_answers) -> list[dict]:
 # --------------------------------------------------------------------------
 # the profile of a path
 # --------------------------------------------------------------------------
-LABELS = ("sketches", "ingest", "eval", "picker", "funnel", "featsel", "planner", "answers")
+LABELS = ("sketches", "ingest", "eval", "picker", "funnel", "featsel", "planner", "answers",
+          "stream")
 
 
 def print_profile(prof, wall_s: float) -> None:
@@ -571,7 +623,7 @@ def session_path(table, args) -> tuple:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
         t_path = time.perf_counter() - t0
-    launches = launches_of(SOURCES)
+    launches = launches_of(SESSION_KERNELS)
     print(f"[main] Session(table) {t_store:.2f} s (sketch store), Session(table) + prepare "
           f"{t_prepare:.2f} s ({args.queries} training queries), {len(held_out)} executes "
           f"{sum(walls):.2f} s; launches {json.dumps(launches, sort_keys=True)}", flush=True)
@@ -654,6 +706,188 @@ def report_answers(sess, table, planned, walls, held_out, args) -> None:
     print(f"[answer] session stats {json.dumps(stats, sort_keys=True)}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 7: the streaming append path on the prepared Session
+# --------------------------------------------------------------------------
+SKETCH_FIELDS = ("measures", "hist_edges", "cat_counts", "ndv", "dv_freq", "hh_stats",
+                 "hh_items", "global_hh", "bitmap", "discrete_span", "part_spans")
+
+
+def check_sketches_bits(got, want) -> None:
+    """Every field of every column sketch bit-equal."""
+    import numpy as np
+
+    assert got.num_partitions == want.num_partitions
+    for name, w in want.columns.items():
+        g = got.columns[name]
+        for field in SKETCH_FIELDS:
+            a, b = getattr(g, field), getattr(w, field)
+            if isinstance(b, np.ndarray):
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    raise AssertionError(f"{name}.{field}: {a.dtype}{a.shape} != "
+                                         f"{b.dtype}{b.shape}")
+                np.testing.assert_array_equal(np.ascontiguousarray(a).view(np.uint8),
+                                              np.ascontiguousarray(b).view(np.uint8),
+                                              err_msg=f"{name}.{field}")
+            elif a != b:
+                raise AssertionError(f"{name}.{field}: {a!r} != {b!r}")
+
+
+def check_answers_bits(got, want) -> None:
+    import numpy as np
+
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.group_keys, w.group_keys)
+        np.testing.assert_array_equal(np.ascontiguousarray(g.raw).view(np.uint64),
+                                      np.ascontiguousarray(w.raw).view(np.uint64))
+
+
+def stream_path(sess, train_queries, held_out, args) -> dict:
+    """The streaming append path on the prepared Session → its launches.
+
+    The training answers are cached; a warm-up append overflows the device
+    stack's partition bucket, and the held-out queries that miss re-pad
+    the stack at the next bucket (without a miss it would stay dropped and
+    no later append would take the in-slack path).  Then ``--appends``
+    appends, each folded into the sketches and into every cached answer
+    (one delta evaluation), with the launch keys of each; held-out
+    executes on the grown table; `predicate_mask_device` for every
+    held-out query; and a cold rebuild the folded state must equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import QuerySpec
+    from repro_torch.core import ingest
+    from repro_torch.core.sketches import build_sketches
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.table import append_partitions
+    from repro_torch.kernels import _build
+    from repro_torch.queries import device
+    from repro_torch.queries.engine import EvalCache, per_partition_answers_batch, predicate_mask
+
+    table, answers, store = sess.table, sess.answers, sess.sketches
+    cache = answers._eval_cache
+    everything = list(train_queries) + list(held_out)
+    before = dict(incremental=store.incremental_updates, full=store.full_rebuilds,
+                  appends=cache.stack_appends, rebuilds=cache.stack_rebuilds)
+
+    def delta(seed):
+        return make_dataset("tpch", num_partitions=args.append_partitions,
+                            rows_per_partition=table.rows_per_partition, layout="random",
+                            seed=seed)
+
+    _build.LAUNCHES.reset()
+    t = time.perf_counter()
+    answers.get_batch(train_queries)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t
+    warm, p0 = delta(99), table.num_partitions
+    t = time.perf_counter()
+    append_partitions(table, warm)
+    store.sketches()
+    answers.get_batch(everything)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t
+    bucket = cache.device_stack().shape[1]
+    if cache.stack_rebuilds != before["rebuilds"] + 1:
+        raise AssertionError("the warm-up append did not re-pad the device stack")
+    print(f"[stream] {len(train_queries)} training answers cached in {t_fill:.2f} s; warm-up "
+          f"append {p0} -> {table.num_partitions} partitions with its sketch fold and "
+          f"{len(everything)} answers ({len(held_out)} misses) in {t_warm:.2f} s; device stack "
+          f"re-padded at {bucket} partitions", flush=True)
+
+    deltas = [delta(100 + i) for i in range(args.appends)]
+    walls, keys = [], []
+    with profiler() as prof:
+        t_window = time.perf_counter()
+        for i, d in enumerate(deltas):
+            device.TRACES.reset()
+            ingest.TRACES.reset()
+            t0 = time.perf_counter()
+            append_partitions(table, d)
+            t1 = time.perf_counter()
+            store.sketches()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            got = answers.get_batch(everything)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            walls.append((t1 - t0, t2 - t1, t3 - t2))
+            keys.append((frozenset(device.TRACES.counts()), frozenset(ingest.TRACES.counts())))
+            print(f"[stream] append {i + 1}: {table.num_partitions} partitions; table append "
+                  f"{t1 - t0:.3f} s, sketch fold {t2 - t1:.3f} s, answer refresh {t3 - t2:.3f} s "
+                  f"({len(everything)} answers by one delta evaluation)", flush=True)
+        t_window = time.perf_counter() - t_window
+    print_profile(prof, t_window)
+    if any(k != keys[0] for k in keys) or not all(keys[0]):
+        raise AssertionError(f"launch keys moved across in-bucket appends: {keys}")
+    if cache.stack_appends != before["appends"] + args.appends:
+        raise AssertionError(f"{cache.stack_appends - before['appends']} in-slack stack "
+                             f"appends, expected {args.appends}")
+    if cache.device_stack().shape[1] != bucket or any(
+            a.raw.shape[0] != table.num_partitions for a in got):
+        raise AssertionError("the stack or an answer does not cover the grown table")
+
+    planned, exec_walls = [], []
+    for q in held_out:
+        t = time.perf_counter()
+        planned.append(sess.execute(QuerySpec(q, error_bound=ERROR_BOUND)))
+        torch.cuda.synchronize()
+        exec_walls.append(time.perf_counter() - t)
+    errs = planned_errors(planned, got[len(train_queries):])
+    rel = np.array([m["avg_rel_err"] for m in errs])
+    read = np.array([a.partitions_read for a in planned], np.float64)
+    print(f"[stream] {len(held_out)} executes at error_bound {ERROR_BOUND} on the grown "
+          f"{table.num_partitions}-partition table: p50 {np.median(exec_walls):.3f} s; partitions "
+          f"read mean {read.mean():.1f}; coverage {float((rel <= ERROR_BOUND).mean()):.4f}; mean "
+          f"avg_rel_err {rel.mean():.4f}", flush=True)
+
+    t = time.perf_counter()
+    checked = routed = 0
+    for q in held_out:
+        mask = device.predicate_mask_device(table, q.predicate, cache)
+        if mask is None:
+            routed += 1
+            continue
+        np.testing.assert_array_equal(mask, predicate_mask(table, q.predicate))
+        checked += 1
+    torch.cuda.synchronize()
+    print(f"[check] predicate_mask_device on the grown table: {checked} held-out predicates "
+          f"bit-equal to the host mask, {routed} routed to the host (None); "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    launches = launches_of(STREAM_KERNELS + (
+        ("group_aggregate",) if any(not q.predicate.groups for q in everything) else ()))
+
+    t = time.perf_counter()
+    cold_sk = build_sketches(table, options=sess.options)
+    torch.cuda.synchronize()
+    t_sk = time.perf_counter() - t
+    t = time.perf_counter()
+    cold = per_partition_answers_batch(table, everything, options=sess.options,
+                                       cache=EvalCache(table, options=sess.options))
+    torch.cuda.synchronize()
+    t_ans = time.perf_counter() - t
+    check_sketches_bits(store.sketches(), cold_sk)
+    check_answers_bits(got, cold)
+    updates = store.incremental_updates - before["incremental"]
+    if updates != args.appends + 1 or store.full_rebuilds != before["full"]:
+        raise AssertionError(f"sketch folds {updates}, full rebuilds "
+                             f"{store.full_rebuilds - before['full']}")
+    fold = np.array([w[1] + w[2] for w in walls])
+    print(f"[stream] cold rebuild of the grown table: build_sketches {t_sk:.2f} s + "
+          f"{len(everything)} answers {t_ans:.2f} s = {t_sk + t_ans:.2f} s; one append's fold "
+          f"(sketches + answers) mean {fold.mean():.3f} s, max {fold.max():.3f} s: "
+          f"{(t_sk + t_ans) / fold.mean():.1f}x cheaper than a cold rebuild", flush=True)
+    stats = {k: v for k, v in sess.stats().items() if k != "read_rate_emas"}
+    print(f"[check] streaming: sketches (every field of {len(cold_sk.columns)} columns) and "
+          f"{len(everything)} answers bit-equal to a cold rebuild; sketch folds {updates}, "
+          f"in-slack stack appends {cache.stack_appends - before['appends']}, launch keys flat "
+          f"over {args.appends} appends ({len(keys[0][0])} eval, {len(keys[0][1])} ingest); "
+          f"launches {json.dumps(launches, sort_keys=True)}; session stats "
+          f"{json.dumps(stats, sort_keys=True)}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import numpy as np
@@ -676,13 +910,15 @@ def main(argv=None) -> int:
     print(f"[card] {card}", flush=True)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    full = dict(partitions=1024, rows=16384, queries=48, held_out=16)
+    full = dict(partitions=1024, rows=16384, queries=48, held_out=16, append_partitions=16,
+                appends=6)
     cuts = {k: getattr(args, k) for k, v in full.items() if getattr(args, k) != v}
     if cuts:
         print(f"[reduced] {json.dumps(cuts)} (full size: 1024 partitions x 16384 rows, "
-              "48 training and 16 held-out queries)", flush=True)
+              "48 training and 16 held-out queries, 6 appends of 16 partitions)", flush=True)
     print(f"[reduced] the offline plane runs on the first {args.offline_partitions} "
-          f"partitions; the Session path drives its kernels at full size", flush=True)
+          f"partitions; the Session and streaming paths drive their kernels at full size",
+          flush=True)
 
     t = time.perf_counter()
     logs = _build.build_all()
@@ -710,11 +946,15 @@ def main(argv=None) -> int:
     offline_path(table, queries, args)
 
     sess, launches, walls, planned, held_out = session_path(table, args)
-    for name, rec in records.items():
-        rec["launches"] = launches.get(name, 0)
     report_answers(sess, table, planned, walls, held_out, args)
 
     check_forest(sess, table, args)
+
+    stream = stream_path(sess, queries, held_out, args)
+    for name, rec in records.items():
+        rec["session_launches"] = launches.get(name, 0)
+        rec["stream_launches"] = stream.get(name, 0)
+        rec["launches"] = rec["session_launches"] + rec["stream_launches"]
 
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(f"[card] {card}", flush=True)

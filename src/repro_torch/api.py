@@ -21,8 +21,10 @@ per-(backend, chunk) EMA of the session's observed read rate), or
 
 `Session` owns the whole lifecycle — `Table` + `SketchStore` +
 `AnswerStore` + `ViewStore` + trained picker + `QueryPlanner` — and
-keeps every piece consistent across table mutations (sketches, cached
-answers and views rebuild when the table's version moves).
+keeps every piece consistent across table mutations: partition appends
+(`data.table.append_partitions`) fold into the sketches, cached answers
+and views in O(new partitions), bit-identical to a cold rebuild; any
+other version bump rebuilds them.
 
 Not ported yet: the partition lifecycle (`delete_partitions`, `compact`,
 `rebalance`), the WAL (`save`, `restore`) and fault injection
@@ -188,8 +190,8 @@ class Session:
         if self.planner is None:
             raise SessionStateError("Session.prepare() must run before execute()")
         if self.table.version != self._fb_version:
-            # table changed: refresh features from the current sketches
-            # so selectivity/outliers see every partition
+            # table grew: refresh features from the (incrementally
+            # folded) sketches so selectivity/outliers see new partitions
             fb = FeatureBuilder(self.table, self.sketches.sketches())
             self.picker.fb = fb
             self.planner.fb = fb
@@ -262,14 +264,16 @@ class Session:
     def stats(self) -> dict:
         """Counters of the session's parts.  Unlike the reference there are
         no keys for what the port lacks yet: ``num_live`` and the stack
-        rewrites (lifecycle), the incremental sketch and view folds
-        (streaming), ``partitions_failed`` and ``fault_report`` (faults)."""
+        rewrites (lifecycle), ``partitions_failed`` and ``fault_report``
+        (faults).  The answer store's append counters carry the names the
+        reference's serving stats give them."""
         planner = self.planner
         return {
             "executed": self._executed,
             "answer_hits": self.answers.hits,
             "answer_misses": self.answers.misses,
             "views": len(self.views),
+            "view_incremental_updates": self.views.incremental_updates,
             "view_full_rebuilds": self.views.full_rebuilds,
             "chunk_evals": 0 if planner is None else planner.chunk_evals,
             "read_rate_ema": self._rates.get(self._rate_key()),
@@ -277,6 +281,9 @@ class Session:
             "ema_keys": len(self._rates),
             "answer_ttl_expired": self.answers.ttl_expired,
             "num_partitions": self.table.num_partitions,
+            "sketch_incremental_updates": self.sketches.incremental_updates,
             "sketch_full_rebuilds": self.sketches.full_rebuilds,
+            "answers_carried": self.answers.carried,
+            "answer_delta_evals": self.answers.delta_evals,
             "degraded_answers": self._degraded,
         }

@@ -16,9 +16,11 @@ same tensors in numpy):
   * Occurrence bitmaps of the top-K global heavy hitters (group-by
     columns; K capped at 25 per the paper).
 
-This is the cold build; incremental maintenance under appends comes with
-the streaming slice.  Phases are labelled ``sketches.*`` for
-`torch.profiler`.
+`build_sketches` is the cold build; `update_sketches` extends a result
+to appended partitions in O(new partitions), bit-identical to a cold
+build of the grown table, and `SketchStore` keeps one table's sketches
+current that way.  Phases are labelled ``sketches.*`` (cold build) and
+``stream.*`` (append folds) for `torch.profiler`.
 """
 from __future__ import annotations
 
@@ -28,7 +30,14 @@ import numpy as np
 from torch.profiler import record_function
 
 from repro_torch.backends import ExecOptions
-from repro_torch.core.ingest import build_statistics, discrete_span, partition_int_spans
+from repro_torch.core.ingest import (
+    build_statistics,
+    delta_statistics,
+    discrete_span,
+    int_span,
+    merge_discrete_span,
+    partition_int_spans,
+)
 from repro_torch.data.table import CATEGORICAL, NUMERIC, Table
 
 NUM_BUCKETS = 10
@@ -162,6 +171,84 @@ def _akmv(col: np.ndarray, k: int = AKMV_K):
     return ndv, freq
 
 
+def akmv_state(col: np.ndarray, k: int = AKMV_K):
+    """Mergeable AKMV state per partition: ``(hashes, counts, d)``.
+
+    ``hashes`` (N, k) holds the k minimum distinct hashed values in
+    ascending order (padded with +inf), ``counts`` (N, k) their exact
+    multiplicities, ``d`` (N,) the exact distinct count of the rows this
+    state saw.  Two states over disjoint row-chunks of the same partitions
+    merge by k-min union (`merge_akmv_states`), and `akmv_finalize`
+    reproduces `_akmv`'s (ndv, dv_freq) bit-identically.
+    """
+    n, r = col.shape
+    hs = np.sort(hash_u64(col.reshape(-1)).reshape(n, r), axis=1)
+    new = np.ones((n, r), bool)
+    new[:, 1:] = hs[:, 1:] != hs[:, :-1]
+    rid = np.cumsum(new, axis=1) - 1
+    d = (rid[:, -1] + 1).astype(np.float64)
+    seg = (rid + np.arange(n, dtype=np.int64)[:, None] * r).reshape(-1)
+    cnts = np.bincount(seg, minlength=n * r).reshape(n, r).astype(np.float64)
+    hashes = np.full((n, k), np.inf)
+    counts = np.zeros((n, k))
+    ii, pos = np.nonzero(new & (rid < k))
+    run = rid[ii, pos]
+    hashes[ii, run] = hs[ii, pos]
+    counts[ii, run] = cnts[ii, run]
+    return hashes, counts, d
+
+
+def merge_akmv_states(a, b, k: int = AKMV_K):
+    """K-min union of two `akmv_state` results over disjoint row sets.
+
+    Multiplicities of hashes retained on both sides add exactly (integer
+    counts in float64); the merged exact distinct count survives only
+    while both sides kept all their distinct hashes (d <= k) — otherwise
+    it is +inf, which sends `akmv_finalize` down the (k-1)/U_(k)
+    estimator exactly as a one-pass build over the union would.
+    """
+    ha, ca, da = a
+    hb, cb, db = b
+    h = np.concatenate([ha, hb], axis=1)
+    c = np.concatenate([ca, cb], axis=1)
+    order = np.argsort(h, axis=1, kind="stable")
+    h = np.take_along_axis(h, order, axis=1)
+    c = np.take_along_axis(c, order, axis=1)
+    n, m = h.shape
+    new = np.ones((n, m), bool)
+    new[:, 1:] = h[:, 1:] != h[:, :-1]
+    rid = np.cumsum(new, axis=1) - 1
+    seg = (rid + np.arange(n, dtype=np.int64)[:, None] * m).reshape(-1)
+    csum = np.bincount(seg, weights=c.reshape(-1), minlength=n * m).reshape(n, m)
+    finite = np.isfinite(h)
+    hashes = np.full((n, k), np.inf)
+    counts = np.zeros((n, k))
+    ii, pos = np.nonzero(new & (rid < k) & finite)
+    run = rid[ii, pos]
+    hashes[ii, run] = h[ii, pos]
+    counts[ii, run] = csum[ii, run]
+    exact = (da <= k) & (db <= k)
+    d = np.where(exact, (new & finite).sum(axis=1).astype(np.float64), np.inf)
+    return hashes, counts, d
+
+
+def akmv_finalize(state, k: int = AKMV_K):
+    """(ndv, dv_freq) from an AKMV state — bit-identical to `_akmv` over
+    the same (unioned) rows."""
+    h, c, d = state
+    valid = np.isfinite(h)
+    m = valid.sum(axis=1)
+    csum = c.sum(axis=1)
+    freq = np.stack(
+        [csum / m, c.max(axis=1), np.where(valid, c, np.inf).min(axis=1), csum],
+        axis=1,
+    )
+    with np.errstate(divide="ignore"):
+        est = (k - 1) / np.maximum(h[:, k - 1], 1e-12)
+    ndv = np.where(d <= k, d, est)
+    return ndv, freq
+
+
 def _partition_bincount(codes: np.ndarray, card: int) -> np.ndarray:
     """(N, R) int codes → (N, card) exact counts, one vectorized bincount."""
     n, r = codes.shape
@@ -171,6 +258,31 @@ def _partition_bincount(codes: np.ndarray, card: int) -> np.ndarray:
         .reshape(n, card)
         .astype(np.float64)
     )
+
+
+def lossy_counting(stream: np.ndarray, support: float = HH_SUPPORT) -> dict[int, float]:
+    """Manku–Motwani lossy counting (streaming, ε = support/10): the
+    heavy hitters of a stream of codes with their frequencies."""
+    eps = support / 10.0
+    bucket_width = int(np.ceil(1.0 / eps))
+    counts: dict[int, tuple[int, int]] = {}
+    b_current = 1
+    for i, item in enumerate(stream.tolist(), start=1):
+        if item in counts:
+            f, delta = counts[item]
+            counts[item] = (f + 1, delta)
+        else:
+            counts[item] = (1, b_current - 1)
+        if i % bucket_width == 0:
+            counts = {k: (f, d) for k, (f, d) in counts.items() if f + d > b_current}
+            b_current += 1
+    n = len(stream)
+    thresh = (support - eps) * n
+    return {
+        int(k): (f / n)
+        for k, (f, d) in counts.items()
+        if f + d >= thresh and f / n >= support - eps
+    }
 
 
 def _heavy_hitters_exact(counts: np.ndarray, support: float = HH_SUPPORT):
@@ -189,6 +301,15 @@ def _heavy_hitters_exact(counts: np.ndarray, support: float = HH_SUPPORT):
         {int(c): float(freq[i, c]) for c in np.flatnonzero(is_hh[i])} for i in range(n)
     ]
     return stats, items, freq, is_hh
+
+
+def _global_heavy_hitters(freq: np.ndarray, is_hh: np.ndarray, card: int):
+    """Top-K global heavy hitters by combined per-partition heavy-hitter
+    frequency (paper §3.2) and their (N, K) occurrence bitmap."""
+    combined = (freq * is_hh).sum(axis=0)
+    k = min(BITMAP_K, card)
+    ghh = np.argsort(-combined, kind="stable")[:k].astype(np.int64)
+    return ghh, is_hh[:, ghh].astype(np.float64)
 
 
 def build_sketches(
@@ -262,15 +383,9 @@ def build_sketches(
             with record_function("sketches.akmv"):
                 ndv, dv_freq = _akmv(data)
             hh_stats, hh_items, freq, is_hh = _heavy_hitters_exact(counts)
-            bitmap = None
-            ghh = None
+            ghh = bitmap = None
             if spec.groupable:
-                # global heavy hitters = top-K by combined frequency of the
-                # per-partition heavy-hitter dictionaries (paper §3.2).
-                combined = (freq * is_hh).sum(axis=0)
-                k = min(BITMAP_K, card)
-                ghh = np.argsort(-combined, kind="stable")[:k].astype(np.int64)
-                bitmap = is_hh[:, ghh].astype(np.float64)  # (N, K)
+                ghh, bitmap = _global_heavy_hitters(freq, is_hh, card)
             cols[spec.name] = ColumnSketch(
                 spec.name, CATEGORICAL, np.zeros((n, 9)), None, counts,
                 ndv, dv_freq, hh_stats, hh_items, ghh, bitmap,
@@ -278,28 +393,157 @@ def build_sketches(
     return TableSketches(table.name, n, table.rows_per_partition, cols)
 
 
+# --------------------------------------------------------------------------
+# streaming ingest: incremental sketch maintenance
+# --------------------------------------------------------------------------
+def update_sketches(
+    sk: TableSketches,
+    table: Table,
+    start: int,
+    *,
+    options: ExecOptions | None = None,
+) -> TableSketches:
+    """Extend ``sk`` (built when ``table`` had ``start`` partitions) to the
+    partitions appended at/after ``start`` — O(new partitions).
+
+    Per-partition rows (measures, histogram, AKMV, heavy hitters) are
+    computed for only the delta partitions — through
+    `core.ingest.delta_statistics` on the device backend, numpy on the
+    host backend — and concatenated; the global state is merged:
+
+      * discrete-numeric heavy hitters: the observed integer span widens
+        with the union (`ColumnSketch.discrete_span`); an append that
+        pushes it past the width cap or brings a non-integral value
+        disqualifies the column for every partition, as a cold build
+        would decide;
+      * categorical global heavy hitters and occurrence bitmaps are
+        recomputed from the merged exact counts (O(P·card), no row reads).
+
+    The result is bit-identical to `build_sketches` of the grown table on
+    the same backend.  Returns a new `TableSketches`; ``sk`` is not mutated.
+    """
+    options = options if options is not None else ExecOptions()
+    backend = options.backend
+    if sk.num_partitions != start:
+        raise ValueError(
+            f"sketch snapshot covers {sk.num_partitions} partitions, "
+            f"append starts at {start}"
+        )
+    if sk.rows_per_partition != table.rows_per_partition:
+        raise ValueError("rows_per_partition changed: not an append")
+    n = table.num_partitions
+    if n == start:
+        return dataclasses.replace(sk)
+
+    stats: dict[str, dict] = {}
+    if backend == "device":
+        with record_function("stream.delta_stats"):
+            stats = delta_statistics(table, start, discrete_counts=True, options=options)
+
+    cols: dict[str, ColumnSketch] = {}
+    for spec in table.schema:
+        data = table.columns[spec.name][start:]
+        old = sk.columns[spec.name]
+        with record_function("stream.akmv"):
+            ndv_d, dv_freq_d = _akmv(data)
+        ndv = np.concatenate([old.ndv, ndv_d])
+        dv_freq = np.concatenate([old.dv_freq, dv_freq_d], axis=0)
+        if spec.kind == NUMERIC:
+            if backend == "device":
+                measures_d = stats[spec.name]["measures"]
+                edges_d = stats[spec.name]["hist_edges"]
+                counts_d = stats[spec.name].get("discrete_counts")
+                lo_d = stats[spec.name].get("discrete_lo", 0)
+            else:
+                measures_d = _measures(data, spec.positive)
+                edges_d = _equi_depth_edges(data)
+                counts_d = None
+                lo_d = 0
+                dspan = discrete_span(data)
+                if dspan is not None:
+                    lo_d, width = dspan
+                    counts_d = _partition_bincount(data.astype(np.int64) - lo_d, width)
+            merged_span = merge_discrete_span(old.discrete_span, int_span(data))
+            if merged_span is not None:
+                hh_stats_d, hh_items_d, _, _ = _heavy_hitters_exact(counts_d)
+                hh_stats = np.concatenate([old.hh_stats, hh_stats_d], axis=0)
+                hh_items = list(old.hh_items) + [
+                    {k + lo_d: v for k, v in d.items()} for d in hh_items_d
+                ]
+            else:
+                # the append disqualified the column: a cold build reports
+                # no heavy hitters for ANY partition, so the old rows are
+                # zeroed too — the one case where an append touches them
+                hh_stats = np.zeros((n, 3), np.float64)
+                hh_items = [dict() for _ in range(n)]
+            old_spans = (
+                old.part_spans
+                if old.part_spans is not None
+                else partition_int_spans(table.columns[spec.name][:start])
+            )
+            cols[spec.name] = ColumnSketch(
+                spec.name, NUMERIC,
+                np.concatenate([old.measures, measures_d], axis=0),
+                np.concatenate([old.hist_edges, edges_d], axis=0),
+                None, ndv, dv_freq, hh_stats, hh_items, None, None,
+                discrete_span=merged_span,
+                part_spans=np.concatenate([old_spans, partition_int_spans(data)], axis=0),
+            )
+        else:
+            if backend == "device":
+                counts_d = stats[spec.name]["counts"]
+            else:
+                counts_d = _partition_bincount(data, spec.cardinality)
+            counts = np.concatenate([old.cat_counts, counts_d], axis=0)
+            # full-P recompute from the merged exact counts: no row reads,
+            # and bitwise what the cold pass computes
+            hh_stats, hh_items, freq, is_hh = _heavy_hitters_exact(counts)
+            ghh = bitmap = None
+            if spec.groupable:
+                ghh, bitmap = _global_heavy_hitters(freq, is_hh, spec.cardinality)
+            cols[spec.name] = ColumnSketch(
+                spec.name, CATEGORICAL, np.zeros((n, 9)), None, counts,
+                ndv, dv_freq, hh_stats, hh_items, ghh, bitmap,
+            )
+    return TableSketches(sk.table_name, n, table.rows_per_partition, cols)
+
+
 class SketchStore:
     """Version-tracked sketch holder for one table.
 
     Builds the sketches at construction and hands them out through
-    `sketches()`, which rebuilds them in full (`build_sketches`, counted in
-    ``full_rebuilds``) whenever the table's version moved.  The reference
-    folds appends and partition moves in incrementally instead; its folds
-    are bit-equal to a cold build, so the sketches are the same either
-    way.  The folds come with the streaming slice.
+    `sketches()`, which checks `Table.version` and folds the pending
+    `Table.mutation_events`: a chain of pure appends extends the sketches
+    through `update_sketches` (O(new partitions), counted in
+    ``incremental_updates``).  Any other chain — deletes, compaction,
+    rebalancing or an unlogged bump — rebuilds in full (`build_sketches`,
+    counted in ``full_rebuilds``); their folds (`gather_sketches`) come
+    with the partition lifecycle.
     """
 
     def __init__(self, table: Table, *, options: ExecOptions | None = None):
         self.table = table
         self.options = options if options is not None else ExecOptions()
+        self.incremental_updates = 0
         self.full_rebuilds = 0
         self._sk = build_sketches(table, options=self.options)
         self._version = table.version
 
     def sketches(self) -> TableSketches:
-        """The current table's sketches."""
-        if self.table.version != self._version:
+        """The current table's sketches, incrementally maintained."""
+        if self.table.version == self._version:
+            return self._sk
+        events = self.table.mutation_events(self._version)
+        if events and all(ev[0] == "append" for ev in events):
+            self.incremental_updates += 1
+            # one update covers the whole chain: it reads [start:) of the
+            # final table
+            with record_function("stream.sketches"):
+                self._sk = update_sketches(
+                    self._sk, self.table, events[0][1], options=self.options
+                )
+        else:
             self.full_rebuilds += 1
             self._sk = build_sketches(self.table, options=self.options)
-            self._version = self.table.version
+        self._version = self.table.version
         return self._sk

@@ -32,7 +32,7 @@ from repro_torch.kernels.telemetry import TraceRegistry
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("eval", "ingest", "pdist", "tree_hist")
+SOURCES = ("eval", "ingest", "pdist", "predicate", "tree_hist")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -63,6 +63,11 @@ SIGNATURES = {
     "pdist": {
         # x, centers, out, N, K, F, stream
         "repro_pdist_sq": (_P,) * 3 + (_I,) * 3 + (_P,),
+    },
+    "predicate": {
+        # x, lo, hi, gmap, mask, count, partial, P, C, G, R, bound_pstride,
+        # gmap_pstride, stream
+        "repro_predicate_eval": (_P,) * 7 + (_I,) * 6 + (_P,),
     },
     "tree_hist": {
         # codes_t, feat_ids, node, g, h, out, R, C, nodes, F, B, stream

@@ -28,6 +28,11 @@ OR-group, padded OR-groups get one always-true clause, padded group
 buckets receive no codes, padded value rows are zero, and padded queries
 are sliced off before unpacking.
 
+`predicate_mask_device` runs a predicate alone through the
+predicate_eval kernel (`kernels/predicate.py`, CUDA source
+`csrc/predicate.cu`): the row mask and its parity surface against the
+host `engine.predicate_mask`.
+
 The column stack (`EvalCache.device_stack`) is the only bulk tensor and
 ships to the device once; everything per query is a small descriptor.
 `TRACES` counts launches per shape-bucket key, so tests can hold the
@@ -47,7 +52,7 @@ from repro_torch.data.table import CATEGORICAL, Table
 from repro_torch.kernels import ops
 from repro_torch.kernels.telemetry import TraceRegistry
 from repro_torch.queries import engine
-from repro_torch.queries.ir import Predicate, Query
+from repro_torch.queries.ir import Aggregate, Predicate, Query
 
 TRACES = TraceRegistry("query_eval")
 
@@ -462,6 +467,51 @@ def eval_workload(
         for (i, _), ans in zip(chunk, answers):
             out[i] = ans
     return out
+
+
+def predicate_call(canon: CanonicalPredicate, cache: engine.EvalCache) -> tuple:
+    """The operands `predicate_eval` takes for a canonical predicate on
+    ``cache``'s device: ``(cols (N, C_b, R), lo (C_b,), hi (C_b,),
+    gmap (C_b, G_b), G_b)`` in the driver's shape buckets.  The clause
+    columns are gathered on the host from the cache's float32 columns, as
+    the reference does."""
+    count = (Aggregate("count"),)
+    plans, n_raw = engine.plan_aggregates(count)
+    sig = _signature(canon, 1, n_raw)
+    plan = _QueryPlan(Query(count), canon, 1, n_raw, plans, sig)
+    col_idx, lo, hi, gmap, _, _ = _descriptor(plan, cache)
+    table = cache.table
+    n, r = table.num_partitions, table.rows_per_partition
+    names = [s.name for s in table.schema]
+    cols = np.stack(
+        [
+            cache.f32(names[i]) if i < cache.ones_index
+            else np.ones((n, r), np.float32)
+            for i in col_idx
+        ],
+        axis=1,
+    )
+    dev = cache.options.torch_device()
+    return (torch.from_numpy(cols).to(dev), torch.from_numpy(lo).to(dev),
+            torch.from_numpy(hi).to(dev), torch.from_numpy(gmap).to(dev), sig.num_groups)
+
+
+def predicate_mask_device(
+    table: Table,
+    predicate: Predicate,
+    cache: engine.EvalCache | None = None,
+) -> np.ndarray | None:
+    """Kernel row mask (N, R) bool through `predicate_eval`, or None when
+    the predicate needs the host path — the bit-parity surface against
+    `engine.predicate_mask`.  Runs on the device of ``cache.options``."""
+    cache = cache or engine.EvalCache(table)
+    canon = canonicalize_predicate(table, predicate, cache)
+    if canon is None:
+        return None
+    if len(canon.cols) == 0:
+        return np.ones((table.num_partitions, table.rows_per_partition), bool)
+    mask, _ = ops.predicate_eval_op(*predicate_call(canon, cache))
+    return (mask > 0.5).cpu().numpy()
 
 
 def workload_census(

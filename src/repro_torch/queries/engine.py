@@ -34,7 +34,7 @@ from torch.profiler import record_function
 
 from repro_torch.backends import ExecOptions
 from repro_torch.core.clustering import bucket_size
-from repro_torch.data.table import CATEGORICAL, Table
+from repro_torch.data.table import CATEGORICAL, NUMERIC, Table
 from repro_torch.errors import InvalidQueryError, StaleStateError
 from repro_torch.queries.ir import Aggregate, Predicate, Query
 
@@ -255,6 +255,7 @@ class EvalCache:
         self._fp_tick = 0
         self._codes: dict[tuple[str, ...], tuple[np.ndarray, int]] = {}
         self._f64: dict[str, np.ndarray] = {}
+        self._f32: dict[str, np.ndarray] = {}
         self._proj: dict[tuple, np.ndarray] = {}
         self._posinf: dict[str, bool] = {}
         self._nonfinite: dict[str, bool] = {}
@@ -328,6 +329,7 @@ class EvalCache:
                 )
         self._codes.clear()
         self._f64.clear()
+        self._f32.clear()
         self._proj.clear()
         if not appends:
             # any other mutation (deletes, compaction, rebalancing, an
@@ -371,6 +373,18 @@ class EvalCache:
             if hit is None:
                 self.cast_builds += 1
                 hit = self._f64[col] = self.table.columns[col].astype(np.float64)
+            return hit
+
+    def f32(self, col: str) -> np.ndarray:
+        """The column as float32 (the column itself when it already is)."""
+        with self._lock:
+            self._sync_locked()
+            hit = self._f32.get(col)
+            if hit is None:
+                data = self.table.columns[col]
+                hit = self._f32[col] = (
+                    data if data.dtype == np.float32 else data.astype(np.float32)
+                )
             return hit
 
     def has_posinf(self, col: str) -> bool:
@@ -499,11 +513,18 @@ class AnswerStore:
     through `per_partition_answers_batch`, so a cold batch costs one
     stacked device pass, not Q rescans.
 
-    **Mutations.**  Any table version bump drops every entry; the next
-    access re-evaluates.  (The reference folds pure appends and partition
-    moves into the held answers instead; its folds are bit-equal to a
-    cold evaluation, so the answers are the same either way — only the
-    hit/miss counters differ.  The folds come with the streaming slice.)
+    **Appends.**  Per-partition answers are row-local: appending
+    partitions cannot change an existing partition's contribution.  So
+    when the table grows through pure partition appends
+    (`data.table.append_partitions`), held answers survive: on next access
+    only the appended partitions are evaluated (one stacked pass over a
+    delta view of the table, counted in ``delta_evals``) and merged into
+    each entry's (N, G, n_raw) raw tensor (``carried``), bit-identical to
+    a cold evaluation of the grown table.  The store drops everything
+    when the version chain holds any other mutation (the lifecycle folds
+    come with the lifecycle slice), or when an append brings non-finite
+    values on the device backend (they flip per-query host-fallback
+    routing, which would mix fold orders).
 
     **Partial answers (planner escalation rounds).**  `get_subset`
     evaluates one query over an explicit partition-id subset and caches
@@ -511,7 +532,8 @@ class AnswerStore:
     subset_fingerprint)`` — the full-answer cache is keyed by query text
     alone, so without the subset half of the key an escalation round's
     partial answer could be served where the full answer (or a larger
-    round's) is expected.
+    round's) is expected.  Partial entries are row-local too: they
+    survive pure appends (their partition ids stay valid).
 
     ``ttl`` (seconds on ``clock``, default `time.monotonic`) bounds how long
     an entry may serve; an expired entry is re-evaluated on access and
@@ -540,19 +562,51 @@ class AnswerStore:
         self._lock = threading.RLock()
         self.hits = 0
         self.misses = 0
+        self.carried = 0  # entries brought current across appends
+        self.delta_evals = 0  # delta-partition evaluations after appends
+        # delta view + EvalCache per pre-append P, shared across entries
+        # (and across get() calls) so one append ships one delta stack
+        self._delta_caches: dict[int, tuple[Table, EvalCache]] = {}
+
+    def _delta_backend_safe(self, start: int) -> bool:
+        """Merging old answers with delta answers is only sound if the
+        append cannot flip a query's device/host routing: on the device
+        backend, non-finite values arriving in the delta change the
+        `EvalCache.has_posinf`/`has_nonfinite` fallback decisions, and the
+        two paths differ in f32 fold order."""
+        if self.options.backend != "device":
+            return True
+        for spec in self.table.schema:
+            if spec.kind != NUMERIC:
+                continue
+            delta = self.table.columns[spec.name][start:]
+            if delta.size and not np.isfinite(delta).all():
+                return False
+        return True
 
     def _sync(self) -> None:
         # raises on out-of-band mutation (fingerprint, forced at this
-        # batch boundary) and keeps the device stack current
+        # batch boundary) and grows or drops the device stack — even on an
+        # all-hits batch that never touches the eval cache
         self._eval_cache._sync()
         self._eval_cache.check_fingerprint()
         if self.table.version == self._version:
             return
-        self._cache.clear()
-        self._partial.clear()
-        self._born.clear()
-        self._partial_born.clear()
+        events = self.table.mutation_events(self._version)
+        appends = (
+            bool(events)
+            and all(ev[0] == "append" for ev in events)
+            and self._delta_backend_safe(events[0][1])
+        )
+        if not appends:
+            self._cache.clear()
+            self._partial.clear()
+            self._born.clear()
+            self._partial_born.clear()
+        # after pure appends the entries are merged lazily on access: each
+        # entry's raw partition count records where its delta starts
         self._version = self.table.version
+        self._delta_caches.clear()  # delta views are per-version snapshots
 
     def _expired(self, born: float | None) -> bool:
         if self.ttl is None or born is None:
@@ -568,14 +622,77 @@ class AnswerStore:
             return True
         return False
 
+    def _delta_view(self, start: int) -> tuple[Table, EvalCache]:
+        """The appended partitions [start, P) as a throwaway table (column
+        slices are views, not copies) plus a memoized EvalCache for it.
+
+        The cache's non-finiteness flags are seeded from the *full*
+        table's: device/host routing must match what a cold evaluation of
+        the grown table decides, or a column whose old partitions hold
+        non-finite values would send the delta down the device path the
+        cold evaluation avoids (another f32 fold order)."""
+        hit = self._delta_caches.get(start)
+        if hit is not None:
+            return hit
+        t = self.table
+        cols = {k: v[start:] for k, v in t.columns.items()}
+        view = Table(t.schema, cols, name=f"{t.name}/delta@{start}")
+        cache = EvalCache(view, options=self.options)
+        if self.options.backend == "device":
+            # only the device driver reads these flags, so the host backend
+            # skips the full-column scans the seeding would force
+            for spec in t.schema:
+                if spec.kind == NUMERIC:
+                    cache._posinf[spec.name] = self._eval_cache.has_posinf(spec.name)
+                    cache._nonfinite[spec.name] = self._eval_cache.has_nonfinite(spec.name)
+        self._delta_caches[start] = (view, cache)
+        return view, cache
+
+    def _merge_delta(self, old: PartitionAnswers, delta: PartitionAnswers) -> PartitionAnswers:
+        """An entry's pre-append answers merged with the delta partitions':
+        the union of the occupied groups, the raw tensors stacked."""
+        keys = np.union1d(old.group_keys, delta.group_keys)
+        n_old, n_delta = old.raw.shape[0], delta.raw.shape[0]
+        raw = np.zeros((n_old + n_delta, keys.shape[0], old.raw.shape[2]))
+        raw[:n_old, np.searchsorted(keys, old.group_keys)] = old.raw
+        raw[n_old:, np.searchsorted(keys, delta.group_keys)] = delta.raw
+        return PartitionAnswers(old.query, keys, raw, old.plans)
+
+    def _refresh(self, entries: list[tuple[str, PartitionAnswers]]) -> dict[str, PartitionAnswers]:
+        """Bring append-stale entries up to the current partition count:
+        one stacked delta evaluation per distinct pre-append P."""
+        n = self.table.num_partitions
+        out: dict[str, PartitionAnswers] = {}
+        by_start: dict[int, list[tuple[str, PartitionAnswers]]] = {}
+        for key, ans in entries:
+            by_start.setdefault(ans.raw.shape[0], []).append((key, ans))
+        with record_function("stream.answers"):
+            for start, group in by_start.items():
+                view, cache = self._delta_view(start)
+                fresh = per_partition_answers_batch(
+                    view, [ans.query for _, ans in group], cache=cache, options=self.options,
+                )
+                self.delta_evals += len(group)
+                self.carried += len(group)
+                for (key, ans), d in zip(group, fresh):
+                    merged = self._merge_delta(ans, d)
+                    assert merged.raw.shape[0] == n
+                    out[key] = merged
+        return out
+
     def get(self, query: Query) -> PartitionAnswers:
         with self._lock:
             self._sync()
             key = query_key(query)
             self._drop_expired(key)
-            hit = self._cache.pop(key, None)
+            # non-destructive read: if the delta refresh below raises, the
+            # stale-but-mergeable entry survives for the retry
+            hit = self._cache.get(key)
+            if hit is not None and hit.raw.shape[0] != self.table.num_partitions:
+                hit = self._refresh([(key, hit)])[key]  # append-stale: merge
             if hit is not None:
                 self.hits += 1
+                self._cache.pop(key, None)
                 self._cache[key] = hit  # re-insert = most recently used
                 return hit
             self.misses += 1
@@ -610,7 +727,7 @@ class AnswerStore:
                 return hit
             self._drop_expired(key[0])
             full = self._cache.get(key[0])
-            if full is not None:
+            if full is not None and full.raw.shape[0] == self.table.num_partitions:
                 self.hits += 1
                 ans = PartitionAnswers(query, full.group_keys, full.raw[ids], full.plans)
             else:
@@ -632,9 +749,12 @@ class AnswerStore:
             return ans
 
     def get_batch(self, queries: list[Query]) -> list[PartitionAnswers]:
-        """Answers for a batch; all misses evaluated in one stacked pass."""
+        """Answers for a batch; all misses evaluated in one stacked pass
+        (and, after an append, all append-stale hits brought current in
+        one stacked delta pass)."""
         with self._lock:
             self._sync()
+            n = self.table.num_partitions
             keys = [query_key(q) for q in queries]
             # snapshot every held answer up front: the re-insertions below
             # may evict an entry before its position in the batch is reached
@@ -649,6 +769,9 @@ class AnswerStore:
                     held[key] = hit
                 else:
                     missing[key] = q
+            stale = [(k, a) for k, a in held.items() if a.raw.shape[0] != n]
+            if stale:
+                held.update(self._refresh(stale))
             fresh: dict[str, PartitionAnswers] = {}
             if missing:
                 evaluated = per_partition_answers_batch(
@@ -660,7 +783,7 @@ class AnswerStore:
             for key in keys:
                 hit = self._cache.pop(key, None)
                 if key in held:
-                    hit = held[key]
+                    hit = held[key]  # the refreshed object, not the stale one
                 if hit is not None:
                     self.hits += 1
                 else:

@@ -6,13 +6,14 @@ runs on a GPU host without JAX).  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Counts, histograms, bincounts, GBDT histograms and their prefix sums
-must be bit-equal to the plain versions; f32 sums agree to the
+Counts, histograms, bincounts, predicate masks and counts, GBDT
+histograms and their prefix sums must be bit-equal to the plain versions; f32 sums agree to the
 reference's own tolerance (rtol 1e-5, atol 1e-4 — the summation order
 differs), pairwise distances at rtol 1e-4, atol 1e-3 with the same
 nearest centers, and every kernel must give the same bits on a second
 run (no float atomics).  The device GBDT fit on the card exports the
-host fit's forest bit for bit.
+host fit's forest bit for bit.  A stream of appends folded on the card
+equals a cold rebuild of the grown table bit for bit.
 """
 import numpy as np
 import pytest
@@ -22,9 +23,15 @@ from repro_torch.backends import ExecOptions
 from repro_torch.core.sketches import build_sketches
 from repro_torch.data.datasets import make_dataset
 from repro_torch.core import clustering, gbdt
-from repro_torch.kernels import _build, fused, groupagg, histogram, moments, pdist, tree_hist
+from repro_torch.core.sketches import SketchStore
+from repro_torch.data.table import append_partitions
+from repro_torch.kernels import (
+    _build, fused, groupagg, histogram, moments, pdist, predicate, tree_hist,
+)
 from repro_torch.queries import device
-from repro_torch.queries.engine import EvalCache, per_partition_answers_batch
+from repro_torch.queries.engine import (
+    AnswerStore, EvalCache, per_partition_answers_batch, predicate_mask,
+)
 from repro_torch.queries.generator import WorkloadSpec
 
 pytestmark = pytest.mark.cuda
@@ -248,3 +255,94 @@ def test_kmeans_on_cuda_selects_like_cpu(cuda):
     want = clustering.kmeans_select(x, 20, device="cpu")
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# predicate_eval and the streaming append path
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize(
+    "p,c,g,r,nan_every,per_partition",
+    [
+        (3, 4, 2, 1001, 0, False),  # R off the 256-row tile
+        (2, 5, 3, 4096, 7, True),  # NaN rows, per-partition bounds and 3-D map
+        (2, 64, 9, 777, 5, True),  # every clause bit of the word
+        (4, 0, 0, 300, 0, False),  # zero clauses, no OR-group: every row
+        (2, 0, 1, 300, 0, False),  # an OR-group without members: no row
+        (1, 8, 8, 16384, 3, False),
+    ],
+)
+def test_predicate_eval_matches_plain(cuda, p, c, g, r, nan_every, per_partition):
+    rng = np.random.default_rng(p * 1000 + c + r)
+    cols = (rng.normal(size=(p, c, r)) * 2).astype(np.float32)
+    if nan_every:
+        cols[:, :, ::nan_every] = np.nan
+    bshape = (p, c) if per_partition else (c,)
+    lo = (rng.normal(size=bshape) - 0.5).astype(np.float32)
+    hi = (lo + np.abs(rng.normal(size=bshape)) + 0.7).astype(np.float32)
+    gid = rng.integers(0, max(g, 1), size=(p, c) if per_partition else (c,))
+    gmap = np.eye(max(g, 1), dtype=np.float32)[gid][..., :g]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (cols, lo, hi, gmap)]
+    mask, cnt = predicate.predicate_eval(*args, g)
+    mask2, cnt2 = predicate.predicate_eval(*args, g)
+    torch.cuda.synchronize()
+    want_mask, want_cnt = predicate.predicate_eval_plain(*args)
+    for got, again, want in ((mask, mask2, want_mask), (cnt, cnt2, want_cnt)):
+        np.testing.assert_array_equal(_bits(got), _bits(again))
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_failed_launch_raises(cuda):
+    """A CUDA operand the kernel refuses (more 256-row tiles than a grid
+    dimension holds) raises; it never returns the plain result."""
+    r = 65536 * 256 + 1
+    cols = torch.zeros((1, 1, r), device=cuda)
+    lo, hi = torch.zeros(1, device=cuda), torch.ones(1, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        predicate.predicate_eval(cols, lo, hi, torch.ones((1, 1), device=cuda), 1)
+
+
+def test_predicate_mask_device_on_cuda_matches_host(cuda):
+    table = make_dataset("tpch", num_partitions=8, rows_per_partition=3000, seed=1)
+    queries = WorkloadSpec(table, seed=4).sample_workload(24)
+    cache = EvalCache(table, options=ExecOptions(device=str(cuda)))
+    _build.LAUNCHES.reset()
+    checked = 0
+    for q in queries:
+        got = device.predicate_mask_device(table, q.predicate, cache)
+        if got is not None:
+            np.testing.assert_array_equal(got, predicate_mask(table, q.predicate))
+            checked += 1
+    assert checked >= 8 and _build.LAUNCHES.counts()[("predicate_eval",)] > 0
+
+
+def test_append_stream_on_cuda_equals_cold_rebuild(cuda):
+    """Three appends (in-bucket, in-bucket, bucket overflow) folded on the
+    card: sketches and answers bit-equal to a cold rebuild on the card."""
+    opts = ExecOptions(device=str(cuda))
+    table = make_dataset("tpch", num_partitions=12, rows_per_partition=2048, seed=0)
+    queries = WorkloadSpec(table, seed=0).sample_workload(24)
+    sketches = SketchStore(table, options=opts)
+    answers = AnswerStore(table, options=opts)
+    answers.get_batch(queries)
+    for parts, seed in ((2, 1), (2, 2), (5, 3)):
+        append_partitions(table, make_dataset("tpch", num_partitions=parts,
+                                              rows_per_partition=2048, layout="random",
+                                              seed=seed))
+        sk, cold_sk = sketches.sketches(), build_sketches(table, options=opts)
+        for name, cs in cold_sk.columns.items():
+            d = sk.columns[name]
+            for field in ("measures", "hist_edges", "cat_counts", "ndv", "dv_freq",
+                          "hh_stats", "global_hh", "bitmap", "part_spans"):
+                if getattr(cs, field) is None:
+                    assert getattr(d, field) is None
+                else:
+                    np.testing.assert_array_equal(getattr(d, field), getattr(cs, field))
+            assert d.hh_items == cs.hh_items and d.discrete_span == cs.discrete_span
+        got = answers.get_batch(queries)
+        cold = per_partition_answers_batch(table, queries, options=opts,
+                                           cache=EvalCache(table, options=opts))
+        for a, b in zip(got, cold):
+            np.testing.assert_array_equal(a.group_keys, b.group_keys)
+            np.testing.assert_array_equal(a.raw, b.raw)
+    assert sketches.incremental_updates == 3 and sketches.full_rebuilds == 0
+    assert answers.carried >= len(queries)

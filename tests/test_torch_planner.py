@@ -213,7 +213,8 @@ def test_session_refreshes_after_append():
                                           layout="random", seed=21))
     ans = sess.execute(api.QuerySpec(q, budget=15))
     assert sess.picker.fb.sk.num_partitions == 15
-    assert sess.stats()["sketch_full_rebuilds"] == 1
+    stats = sess.stats()
+    assert stats["sketch_incremental_updates"] == 1 and stats["sketch_full_rebuilds"] == 0
     truth = per_partition_answers(table, q, options=HOST)
     assert ans.plan.mode == "exact"
     np.testing.assert_array_equal(ans.group_keys, truth.group_keys)
@@ -253,8 +254,12 @@ def test_answer_store_subsets_lru_ttl_and_invalidation():
     clock.t = 11.0
     store.get(qs[2])
     assert store.ttl_expired == 1
-    # a table mutation drops every entry
+    # an append keeps every entry and folds the new partition into it
     append_partitions(table, make_dataset("tpch", num_partitions=1, rows_per_partition=64,
                                           seed=3))
+    assert store.get(qs[2]).raw.shape[0] == 9
+    assert len(store) == 2 and store.carried == 1
+    # any other table mutation drops every entry
+    table.version += 1
     assert store.get(qs[2]).raw.shape[0] == 9
     assert len(store) == 1
