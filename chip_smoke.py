@@ -2,8 +2,7 @@
 """Smoke run of the PyTorch port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--partitions 1024] [--rows 16384] [--queries 48]
-                          [--held-out 16] [--offline-partitions 256]
-                          [--append-partitions 16] [--appends 6] [--seed 0]
+                          [--held-out 16] [--offline-partitions 256] [--seed 0]
 
 Phases, each fatal on failure:
 
@@ -31,11 +30,11 @@ Phases, each fatal on failure:
    and on the host: the forests must be bit-equal;
 7. the streaming append path on the same prepared Session: the training
    answers cached, a warm-up append that overflows the device stack's
-   partition bucket, then ``--appends`` appends of ``--append-partitions``
-   partitions each folded into the sketches and every cached answer
-   (profiled), held-out executes on the grown table, ``predicate_mask_device``
-   against the host mask for every held-out query, and a cold rebuild of
-   sketches and answers that the folded ones must equal bit for bit;
+   partition bucket, then six appends of ``--partitions`` / 64 partitions
+   each folded into the sketches and every cached answer (profiled),
+   held-out executes on the grown table, ``predicate_mask_device`` against
+   the host mask for every held-out query, and a cold rebuild of sketches
+   and answers that the folded ones must equal bit for bit;
 8. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
    Each kernel's ``session_launches`` and ``stream_launches`` count its
    launches in the Session path and in the streaming path, and
@@ -78,6 +77,14 @@ SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
 OFFLINE_KERNELS = ("fused_eval", "group_aggregate", "moments", "histogram_range", "bincount")
 SESSION_KERNELS = tuple(k for k in SOURCES if k != "predicate_eval")
 STREAM_KERNELS = ("fused_eval", "moments", "histogram_range", "bincount", "predicate_eval")
+APPENDS = 6  # timed appends of the streaming phase, after the warm-up one
+
+
+def append_size(partitions: int) -> int:
+    """Partitions per append: 16 at the full 1024.  The warm-up append
+    then crosses a power-of-two stack bucket and the ``APPENDS`` after it
+    stay inside the next one."""
+    return max(1, partitions // 64)
 
 
 def parse_args(argv=None):
@@ -87,8 +94,6 @@ def parse_args(argv=None):
     ap.add_argument("--queries", type=int, default=48)
     ap.add_argument("--held-out", type=int, default=16)
     ap.add_argument("--offline-partitions", type=int, default=256)
-    ap.add_argument("--append-partitions", type=int, default=16)
-    ap.add_argument("--appends", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -748,7 +753,7 @@ def stream_path(sess, train_queries, held_out, args) -> dict:
     The training answers are cached; a warm-up append overflows the device
     stack's partition bucket, and the held-out queries that miss re-pad
     the stack at the next bucket (without a miss it would stay dropped and
-    no later append would take the in-slack path).  Then ``--appends``
+    no later append would take the in-slack path).  Then ``APPENDS``
     appends, each folded into the sketches and into every cached answer
     (one delta evaluation), with the launch keys of each; held-out
     executes on the grown table; `predicate_mask_device` for every
@@ -769,10 +774,10 @@ def stream_path(sess, train_queries, held_out, args) -> dict:
     cache = answers._eval_cache
     everything = list(train_queries) + list(held_out)
     before = dict(incremental=store.incremental_updates, full=store.full_rebuilds,
-                  appends=cache.stack_appends, rebuilds=cache.stack_rebuilds)
+                  appends=cache.stack_appends)
 
     def delta(seed):
-        return make_dataset("tpch", num_partitions=args.append_partitions,
+        return make_dataset("tpch", num_partitions=append_size(args.partitions),
                             rows_per_partition=table.rows_per_partition, layout="random",
                             seed=seed)
 
@@ -781,6 +786,8 @@ def stream_path(sess, train_queries, held_out, args) -> dict:
     answers.get_batch(train_queries)
     torch.cuda.synchronize()
     t_fill = time.perf_counter() - t
+    # the fill builds the stack if no earlier phase left one
+    rebuilds = cache.stack_rebuilds
     warm, p0 = delta(99), table.num_partitions
     t = time.perf_counter()
     append_partitions(table, warm)
@@ -789,14 +796,14 @@ def stream_path(sess, train_queries, held_out, args) -> dict:
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t
     bucket = cache.device_stack().shape[1]
-    if cache.stack_rebuilds != before["rebuilds"] + 1:
+    if cache.stack_rebuilds != rebuilds + 1:
         raise AssertionError("the warm-up append did not re-pad the device stack")
     print(f"[stream] {len(train_queries)} training answers cached in {t_fill:.2f} s; warm-up "
           f"append {p0} -> {table.num_partitions} partitions with its sketch fold and "
           f"{len(everything)} answers ({len(held_out)} misses) in {t_warm:.2f} s; device stack "
           f"re-padded at {bucket} partitions", flush=True)
 
-    deltas = [delta(100 + i) for i in range(args.appends)]
+    deltas = [delta(100 + i) for i in range(APPENDS)]
     walls, keys = [], []
     with profiler() as prof:
         t_window = time.perf_counter()
@@ -821,9 +828,9 @@ def stream_path(sess, train_queries, held_out, args) -> dict:
     print_profile(prof, t_window)
     if any(k != keys[0] for k in keys) or not all(keys[0]):
         raise AssertionError(f"launch keys moved across in-bucket appends: {keys}")
-    if cache.stack_appends != before["appends"] + args.appends:
+    if cache.stack_appends != before["appends"] + APPENDS:
         raise AssertionError(f"{cache.stack_appends - before['appends']} in-slack stack "
-                             f"appends, expected {args.appends}")
+                             f"appends, expected {APPENDS}")
     if cache.device_stack().shape[1] != bucket or any(
             a.raw.shape[0] != table.num_partitions for a in got):
         raise AssertionError("the stack or an answer does not cover the grown table")
@@ -870,7 +877,7 @@ def stream_path(sess, train_queries, held_out, args) -> dict:
     check_sketches_bits(store.sketches(), cold_sk)
     check_answers_bits(got, cold)
     updates = store.incremental_updates - before["incremental"]
-    if updates != args.appends + 1 or store.full_rebuilds != before["full"]:
+    if updates != APPENDS + 1 or store.full_rebuilds != before["full"]:
         raise AssertionError(f"sketch folds {updates}, full rebuilds "
                              f"{store.full_rebuilds - before['full']}")
     fold = np.array([w[1] + w[2] for w in walls])
@@ -882,7 +889,7 @@ def stream_path(sess, train_queries, held_out, args) -> dict:
     print(f"[check] streaming: sketches (every field of {len(cold_sk.columns)} columns) and "
           f"{len(everything)} answers bit-equal to a cold rebuild; sketch folds {updates}, "
           f"in-slack stack appends {cache.stack_appends - before['appends']}, launch keys flat "
-          f"over {args.appends} appends ({len(keys[0][0])} eval, {len(keys[0][1])} ingest); "
+          f"over {APPENDS} appends ({len(keys[0][0])} eval, {len(keys[0][1])} ingest); "
           f"launches {json.dumps(launches, sort_keys=True)}; session stats "
           f"{json.dumps(stats, sort_keys=True)}", flush=True)
     return launches
@@ -910,8 +917,7 @@ def main(argv=None) -> int:
     print(f"[card] {card}", flush=True)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    full = dict(partitions=1024, rows=16384, queries=48, held_out=16, append_partitions=16,
-                appends=6)
+    full = dict(partitions=1024, rows=16384, queries=48, held_out=16)
     cuts = {k: getattr(args, k) for k, v in full.items() if getattr(args, k) != v}
     if cuts:
         print(f"[reduced] {json.dumps(cuts)} (full size: 1024 partitions x 16384 rows, "

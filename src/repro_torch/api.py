@@ -23,8 +23,11 @@ per-(backend, chunk) EMA of the session's observed read rate), or
 `AnswerStore` + `ViewStore` + trained picker + `QueryPlanner` — and
 keeps every piece consistent across table mutations: partition appends
 (`data.table.append_partitions`) fold into the sketches, cached answers
-and views in O(new partitions), bit-identical to a cold rebuild; any
-other version bump rebuilds them.
+and views, bit-identical to a cold rebuild; any other version bump
+rebuilds them.  The kernel passes and delta evaluations of a fold read
+only the new partitions, but each cached answer's merge copies its
+(P, groups) raw tensor and the categorical heavy hitters are recomputed
+over (P, cardinality) counts, so a fold still grows with the table.
 
 Not ported yet: the partition lifecycle (`delete_partitions`, `compact`,
 `rebalance`), the WAL (`save`, `restore`) and fault injection

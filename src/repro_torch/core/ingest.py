@@ -18,7 +18,8 @@ partition tensors concatenate along P, and the discrete heavy-hitter
 counts re-embed into the union of their integer spans.
 `delta_statistics` computes the tensors of only the partitions appended
 since a snapshot and `merge_statistics` reassembles the full-table
-result bit-identically — an append costs O(new partitions).  `TRACES`
+result bit-identically: the kernels read only the new partitions; the
+merge concatenates host arrays of all P.  `TRACES`
 counts the kernel passes per padded shape, so a stream of appends keeps
 a flat set of launch keys (the reference's compile census).
 """
@@ -285,7 +286,8 @@ def delta_statistics(
     options: ExecOptions | None = None,
 ) -> dict[str, dict]:
     """Statistics tensors of only the partitions appended at/after
-    ``start`` — the O(new partitions) half of the streaming ingest.  Feed
+    ``start`` — the kernel half of the streaming ingest, which reads only
+    the new partitions.  Feed
     the result to `merge_statistics` with the pre-append tensors to get
     the full-table statistics bit-identically."""
     return build_statistics(

@@ -17,9 +17,11 @@ same tensors in numpy):
     columns; K capped at 25 per the paper).
 
 `build_sketches` is the cold build; `update_sketches` extends a result
-to appended partitions in O(new partitions), bit-identical to a cold
-build of the grown table, and `SketchStore` keeps one table's sketches
-current that way.  Phases are labelled ``sketches.*`` (cold build) and
+to appended partitions, bit-identical to a cold build of the grown
+table, and `SketchStore` keeps one table's sketches current that way.
+A fold reads the rows of only the new partitions (kernels, AKMV); the
+categorical heavy hitters are recomputed over the merged (P, cardinality)
+counts.  Phases are labelled ``sketches.*`` (cold build) and
 ``stream.*`` (append folds) for `torch.profiler`.
 """
 from __future__ import annotations
@@ -404,7 +406,8 @@ def update_sketches(
     options: ExecOptions | None = None,
 ) -> TableSketches:
     """Extend ``sk`` (built when ``table`` had ``start`` partitions) to the
-    partitions appended at/after ``start`` — O(new partitions).
+    partitions appended at/after ``start``; it reads the rows of only
+    those partitions.
 
     Per-partition rows (measures, histogram, AKMV, heavy hitters) are
     computed for only the delta partitions — through
@@ -514,11 +517,10 @@ class SketchStore:
     Builds the sketches at construction and hands them out through
     `sketches()`, which checks `Table.version` and folds the pending
     `Table.mutation_events`: a chain of pure appends extends the sketches
-    through `update_sketches` (O(new partitions), counted in
-    ``incremental_updates``).  Any other chain — deletes, compaction,
-    rebalancing or an unlogged bump — rebuilds in full (`build_sketches`,
-    counted in ``full_rebuilds``); their folds (`gather_sketches`) come
-    with the partition lifecycle.
+    through `update_sketches` (counted in ``incremental_updates``).  Any
+    other chain — deletes, compaction, rebalancing or an unlogged bump —
+    rebuilds in full (`build_sketches`, counted in ``full_rebuilds``);
+    their folds (`gather_sketches`) come with the partition lifecycle.
     """
 
     def __init__(self, table: Table, *, options: ExecOptions | None = None):
