@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--partitions 1024] [--rows 16384] [--queries 48]
                           [--held-out 16] [--offline-partitions 256] [--seed 0]
+                          [--compare-csrc DIR]
 
 Phases, each fatal on failure:
 
@@ -13,9 +14,13 @@ Phases, each fatal on failure:
    shapes the main path hands it: counts, histograms, bincounts, GBDT
    histograms and their prefix sums bit-equal, f32 sums and distances
    within the tolerance printed beside them; with the kernel's time, the
-   plain version's, the least time the card could take and the time of
-   a PyTorch library call computing the same function (a yardstick the
-   port never calls);
+   plain version's and that of a PyTorch library call computing the same
+   function (a yardstick the port never calls), each the median of
+   ``ROUNDS`` timed rounds with their min and max, and the least time the
+   card could take; then cases that stress the designs (sparse masks, a
+   radix of 4, the first 16 stack rows alone against the full launch,
+   level-0 and leaf-sum GBDT histograms), checked and timed but not
+   recorded;
 4. the offline plane (slice 1's path) on the first ``--offline-partitions``
    partitions: ``build_sketches`` and ``per_partition_answers_batch`` on
    the default options, every one of its kernels launched, held against
@@ -27,7 +32,9 @@ Phases, each fatal on failure:
    prepare's parts, execute times, partitions read, coverage and error
    against the exact answers, beside a 5%-uniform partition sample;
 6. the first trees of the first funnel model fitted again on the card
-   and on the host: the forests must be bit-equal;
+   and on the host: the forests must be bit-equal; and tree_hist on
+   those binned training codes at level 0 and at the leaf sums of the
+   trained first tree, against its plain version;
 7. the streaming append path on the same prepared Session: the training
    answers cached, a warm-up append that overflows the device stack's
    partition bucket, then six appends of ``--partitions`` / 64 partitions
@@ -64,7 +71,7 @@ FOREST_CHECK_TREES = 4
 
 SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
     "fused_eval": ("src/repro_torch/csrc/eval.cu", "src/repro/kernels/fused.py:84"),
-    "group_aggregate": ("src/repro_torch/csrc/eval.cu", "src/repro/kernels/groupagg.py:63"),
+    "group_aggregate": ("src/repro_torch/csrc/groupagg.cu", "src/repro/kernels/groupagg.py:63"),
     "moments": ("src/repro_torch/csrc/ingest.cu", "src/repro/kernels/moments.py:72"),
     "histogram_range": ("src/repro_torch/csrc/ingest.cu", "src/repro/kernels/histogram.py:60"),
     "bincount": ("src/repro_torch/csrc/ingest.cu", "src/repro/kernels/histogram.py:96"),
@@ -78,6 +85,7 @@ OFFLINE_KERNELS = ("fused_eval", "group_aggregate", "moments", "histogram_range"
 SESSION_KERNELS = tuple(k for k in SOURCES if k != "predicate_eval")
 STREAM_KERNELS = ("fused_eval", "moments", "histogram_range", "bincount", "predicate_eval")
 APPENDS = 6  # timed appends of the streaming phase, after the warm-up one
+ROUNDS = 5  # timed rounds of every kernel case; the median is recorded
 
 
 def append_size(partitions: int) -> int:
@@ -95,24 +103,97 @@ def parse_args(argv=None):
     ap.add_argument("--held-out", type=int, default=16)
     ap.add_argument("--offline-partitions", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare-csrc", default=None, metavar="DIR",
+                    help="also build the kernel sources in DIR (e.g. a parent commit's "
+                         "src/repro_torch/csrc) and time their launchers on every phase-3 "
+                         "case, for a before/after in one run")
     return ap.parse_args(argv)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events),
-    after one warm-up call."""
+def cuda_ms(fn, iters: int, rounds: int = ROUNDS) -> tuple[float, float, float]:
+    """Device time of ``fn`` (CUDA events), after one warm-up call: the
+    mean over ``iters`` launches in each of ``rounds`` rounds →
+    (median, min, max) of the rounds."""
+    import statistics
+
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times), min(times), max(times)
+
+
+def spread(t: tuple[float, float, float]) -> str:
+    return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
+
+
+# launcher symbol → library built from the --compare-csrc sources
+OTHER: dict = {}
+
+
+def build_other(csrc: str) -> dict:
+    """Every ``*.cu`` in ``csrc``, built with the port's nvcc flags (one
+    process each, all at once) into ``build/compare/``: → {launcher
+    symbol: loaded library}, each launcher typed as the port types it."""
+    import ctypes
+    import pathlib
+
+    from repro_torch.kernels import _build
+
+    out = pathlib.Path(ROOT) / "build" / "compare"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in sorted(pathlib.Path(csrc).glob("*.cu")):
+        so = out / f"lib{src.stem}.so"
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)]
+        jobs.append((so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)))
+    symbols = {}
+    for so, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {so.name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        for fns in _build.SIGNATURES.values():
+            for fn, argtypes in fns.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = list(argtypes)
+                    getattr(lib, fn).restype = ctypes.c_int
+                    symbols[fn] = lib
+    return symbols
+
+
+def time_other(case: Case, want) -> tuple | None:
+    """``case``'s kernel launched through the --compare-csrc build of its
+    launcher, held to the plain version's output ``want`` and timed; None
+    without such a build."""
+    import pathlib
+
+    from repro_torch.kernels import _build
+
+    other = OTHER.get(f"repro_{case.name}")
+    if other is None:
+        return None
+    lib = pathlib.Path(SOURCES[case.name][0]).stem
+    mine = _build.library(lib)
+    _build._libs[lib] = other  # the wrapper serves whatever library is loaded
+    try:
+        compare(case.kernel(*case.args), want, case.tol)
+        return cuda_ms(lambda: case.kernel(*case.args), 20)
+    finally:
+        _build._libs[lib] = mine
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -138,11 +219,67 @@ class Case:
     library: tuple | None  # (description, fn) of one PyTorch call, or None
     shape: str
     record: bool = True  # False: a second case of a kernel, checked and printed only
+    check: object = None  # (output) -> note; raises if a further contract fails
 
 
 # --------------------------------------------------------------------------
 # phase 3: each kernel against its plain version at main-path shapes
 # --------------------------------------------------------------------------
+def group_aggregate_case(values, mask, codes, radix, shape, record=True, check=None) -> Case:
+    """group_aggregate on these operands.  Bytes: the mask of every row,
+    values and code of the rows that pass, the output; ops: a test a row,
+    V adds a passing row.  Library: ``index_add_`` of the passing rows."""
+    import torch
+
+    from repro_torch.kernels import groupagg
+
+    keep = (mask != 0) & (codes >= 0) & (codes < radix)
+    b, v, _ = values.shape
+    passing = int(keep.sum())
+    nbytes = mask.numel() * 4 + passing * (v + 1) * 4 + b * v * radix * 4
+    ops = mask.numel() + passing * v
+    rows = keep.nonzero(as_tuple=True)
+    flat = ((rows[0][:, None] * v + torch.arange(v, device=values.device)) * radix
+            + codes[rows][:, None].long()).view(-1)
+    vals = (values * mask[:, None, :]).transpose(1, 2)[rows].reshape(-1)
+    acc = torch.zeros(b * v * radix, device=values.device)
+    return Case("group_aggregate", groupagg.group_aggregate, groupagg.group_aggregate_plain,
+                (values, mask, codes, radix), "sums", nbytes, ops,
+                ("torch.Tensor.index_add_", lambda: acc.index_add_(0, flat, vals)), shape,
+                record, check)
+
+
+def group_aggregate_stress(values, mask, codes, radix, seed: int) -> list[Case]:
+    """The eval chunk with a 5% mask, with its codes folded to a radix
+    of 4, and its first 16 stack rows alone, which must give the bits the
+    full launch gives them (the streaming path's delta == cold)."""
+    import torch
+
+    from repro_torch.kernels import groupagg
+
+    b, v, r = values.shape
+    gen = torch.Generator().manual_seed(seed)
+    sparse = (torch.rand((b, r), generator=gen) < 0.05).to(torch.float32).to(values.device)
+    codes4 = torch.where(codes >= 0, codes % 4, codes)
+    full = groupagg.group_aggregate(values, mask, codes, radix)
+    head = [t[:16] for t in (values, mask, codes)]
+
+    def same_as_full(out):
+        if not torch.equal(out.view(torch.int32), full[:16].view(torch.int32)):
+            raise AssertionError("group_aggregate: 16 stack rows alone differ from the full launch")
+        return "16 rows alone bit-equal to the full launch"
+
+    shape = f"{b}x{v}x{r}"
+    return [
+        group_aggregate_case(values, sparse, codes, radix, f"{shape}, radix {radix}, 5% mask",
+                             record=False),
+        group_aggregate_case(values, mask, codes4, 4, f"{shape}, codes mod 4, radix 4",
+                             record=False),
+        group_aggregate_case(*head, radix, f"16x{v}x{r}, radix {radix}, first 16 stack rows",
+                             record=False, check=same_as_full),
+    ]
+
+
 def kernel_cases(table, queries, dev) -> list[Case]:
     """The offline plane's kernels with the operands the main path hands
     them: one numeric and one categorical column of the table, and the
@@ -154,7 +291,7 @@ def kernel_cases(table, queries, dev) -> list[Case]:
     import torch
 
     from repro_torch.backends import ExecOptions
-    from repro_torch.kernels import fused, groupagg, histogram, moments, predicate
+    from repro_torch.kernels import fused, histogram, moments, predicate
     from repro_torch.queries import device
     from repro_torch.queries.engine import EvalCache
 
@@ -202,39 +339,26 @@ def kernel_cases(table, queries, dev) -> list[Case]:
     for chunk in chunks:
         kind = "fused_eval" if chunk[0][1].sig.has_predicate else "group_aggregate"
         picked.setdefault(kind, chunk)
-    for kind, chunk in picked.items():
+    for chunk in picked.values():
         name, args = device.kernel_call([pl for _, pl in chunk], cache)
         radix = args[-1]
-        # bytes: what decides each row's fate is read for every row (clause
-        # columns + descriptors, or the mask), values and codes only for
-        # the rows that pass; ops: two compares a clause, V adds a pass
-        if name == "fused_eval":
-            xs, lo, hi, gmap, values, codes_c, _ = args
-            keep = fused.predicate_rows(xs, lo, hi, gmap)
-            head = sum(t.numel() * 4 for t in (xs, lo, hi, gmap))
-            ops = 2 * xs.numel()
-        else:
+        shape = "x".join(str(s) for s in args[0].shape) + f", radix {radix}"
+        if name == "group_aggregate":
             values, mask, codes_c, _ = args
-            keep = mask != 0
-            head = mask.numel() * 4
-            ops = mask.numel()
-        keep = keep & (codes_c >= 0) & (codes_c < radix)
+            cases.append(group_aggregate_case(values, mask, codes_c, radix, shape))
+            cases += group_aggregate_stress(values, mask, codes_c, radix, seed=len(cases))
+            continue
+        # bytes: clause columns and descriptors for every row, values and
+        # codes only for the rows that pass; ops: two compares a clause, V
+        # adds a pass
+        xs, lo, hi, gmap, values, codes_c, _ = args
+        keep = fused.predicate_rows(xs, lo, hi, gmap) & (codes_c >= 0) & (codes_c < radix)
         b, v, _ = values.shape
         passing = int(keep.sum())
-        nbytes = head + passing * (v + 1) * 4 + b * v * radix * 4
-        ops += passing * v
-        library = None
-        if name == "group_aggregate":
-            rows = keep.nonzero(as_tuple=True)
-            flat = ((rows[0][:, None] * v + torch.arange(v, device=dev)) * radix
-                    + codes_c[rows][:, None].long()).view(-1)
-            vals = (values * mask[:, None, :]).transpose(1, 2)[rows].reshape(-1)
-            acc = torch.zeros(b * v * radix, device=dev)
-            library = ("torch.Tensor.index_add_", lambda: acc.index_add_(0, flat, vals))
-        kernel = fused.fused_eval if name == "fused_eval" else groupagg.group_aggregate
-        plain = fused.fused_eval_plain if name == "fused_eval" else groupagg.group_aggregate_plain
-        shape = "x".join(str(s) for s in args[0].shape) + f", radix {radix}"
-        cases.append(Case(name, kernel, plain, args, "sums", nbytes, ops, library, shape))
+        nbytes = (sum(t.numel() * 4 for t in (xs, lo, hi, gmap)) + passing * (v + 1) * 4
+                  + b * v * radix * 4)
+        cases.append(Case(name, fused.fused_eval, fused.fused_eval_plain, args, "sums", nbytes,
+                          2 * xs.numel() + passing * v, None, shape))
 
     canon = max((device.canonicalize_predicate(table, q.predicate, cache) for q in queries),
                 key=lambda c: -1 if c is None else len(c.cols))
@@ -257,11 +381,38 @@ def kernel_cases(table, queries, dev) -> list[Case]:
     return cases
 
 
+def tree_hist_case(codes_t, fids, node, g, h, nodes, n_feat, bins, shape,
+                   record=True) -> Case:
+    """tree_hist on (C, R) column-major codes.  Bytes: codes, node, g, h,
+    feature ids and the output once; ops: G and H adds of each live (row,
+    column).  Library: ``index_put_(accumulate=True)`` of the same adds."""
+    import torch
+
+    from repro_torch.kernels import tree_hist
+
+    c, r = codes_t.shape
+    live = node >= 0
+    out_elems = 2 * nodes * n_feat * bins
+    seg = ((node.long()[None, :] * n_feat + fids.long()[:, None]) * bins
+           + codes_t.long())[:, live].T.reshape(-1)  # row-major (row, column)
+    src = torch.stack([g[live], h[live]], 1).repeat_interleave(c, 0)
+    acc = torch.zeros((nodes * n_feat * bins, 2), device=codes_t.device)
+    return Case(
+        "tree_hist", tree_hist.tree_hist, tree_hist.tree_hist_plain,
+        (codes_t.T, fids, node, g, h, nodes, n_feat, bins), "bits",
+        (c * r + 3 * r + c) * 4 + out_elems * 4, 2 * int(live.sum()) * c,
+        ("torch.Tensor.index_put_(accumulate=True)",
+         lambda: acc.index_put_((seg,), src, accumulate=True)), shape, record)
+
+
 def picker_cases(n_rows: int, n_feat: int, n_partitions: int, dev, seed: int) -> list[Case]:
     """The picker's kernels at the Session path's shapes, from seeded data:
     one GBDT level (the funnel fit's rows, sampled features and 16 nodes)
     and the prefix sums of its histograms; one KMeans assignment of feature
-    selection (every partition against its largest cluster bucket)."""
+    selection (every partition against its largest cluster bucket).  Not
+    recorded: tree_hist at level 0 (every row in node 0) with one
+    near-constant column, and at the leaf-sum shape (1 column, 32 nodes,
+    1 bin)."""
     import numpy as np
     import torch
 
@@ -283,23 +434,29 @@ def picker_cases(n_rows: int, n_feat: int, n_partitions: int, dev, seed: int) ->
     node = torch.from_numpy(node).to(dev)
     g = torch.from_numpy(rng.normal(size=r).astype(np.float32)).to(dev)
     h = torch.from_numpy((rng.random(r) + 0.5).astype(np.float32)).to(dev)
-    args = (codes_t.T, fids, node, g, h, nodes, n_feat, NUM_BINS)
-    out_elems = 2 * nodes * n_feat * NUM_BINS
-    seg = ((node.long()[None, :] * n_feat + fids.long()[:, None]) * NUM_BINS
-           + codes_t.long())[:, node >= 0].T.reshape(-1)  # row-major (row, column)
-    src = torch.stack([g[node >= 0], h[node >= 0]], 1).repeat_interleave(c, 0)
-    acc = torch.zeros((nodes * n_feat * NUM_BINS, 2), device=dev)
-    cases.append(Case(
-        "tree_hist", tree_hist.tree_hist, tree_hist.tree_hist_plain, args, "bits",
-        (c * r + 3 * r + c) * 4 + out_elems * 4, 2 * nt * c,
-        ("torch.Tensor.index_put_(accumulate=True)",
-         lambda: acc.index_put_((seg,), src, accumulate=True)),
-        f"{r}x{c}, {nodes} nodes, {n_feat} features"))
-    hist = tree_hist.tree_hist(*args)
+    cases.append(tree_hist_case(codes_t, fids, node, g, h, nodes, n_feat, NUM_BINS,
+                                f"{r}x{c}, {nodes} nodes, {n_feat} features"))
+    hist = tree_hist.tree_hist(*cases[-1].args)
+    out_elems = hist.numel()
     cases.append(Case("cumsum_seq", tree_hist.cumsum_seq, tree_hist.cumsum_seq_plain, (hist,),
                       "bits", 2 * out_elems * 4, out_elems,
                       ("torch.cumsum", lambda: torch.cumsum(hist, dim=-1)),
                       "x".join(str(s) for s in hist.shape)))
+    # level 0: every live row in node 0, column 0 near-constant (97% of the
+    # rows in one bin, so one segment holds most rows)
+    codes0 = codes_t.clone()
+    codes0[0, torch.from_numpy(rng.random(r) < 0.97).to(dev)] = 17
+    node0 = torch.where(node >= 0, 0, -1).to(torch.int32)
+    cases.append(tree_hist_case(codes0, fids, node0, g, h, nodes, n_feat, NUM_BINS,
+                                f"{r}x{c}, level 0 (node 0), column 0 near-constant",
+                                record=False))
+    # the leaf sums of one tree: 1 column of 1 bin over 2^depth = 32 nodes
+    leaf = np.full(r, -1, np.int32)
+    leaf[:nt] = rng.integers(0, 32, size=nt)
+    cases.append(tree_hist_case(torch.zeros((1, r), dtype=torch.int32, device=dev),
+                                torch.zeros(1, dtype=torch.int32, device=dev),
+                                torch.from_numpy(leaf).to(dev), g, h, 32, 1, 1,
+                                f"{r}x1, 32 nodes, 1 bin (leaf sums)", record=False))
     # pdist_sq: feature selection clusters every partition (a power-of-two
     # row bucket) into its largest budget, 20% of the partitions
     n, k = bucket_size(n_partitions), bucket_size(int(0.2 * n_partitions))
@@ -311,6 +468,52 @@ def picker_cases(n_rows: int, n_feat: int, n_partitions: int, dev, seed: int) ->
                       ("torch.cdist(x, c) ** 2", lambda: torch.cdist(x, cent) ** 2),
                       f"{n}x{n_feat} by {k}x{n_feat}"))
     return cases
+
+
+def session_tree_hist_cases(codes, forest, seed: int) -> list[Case]:
+    """tree_hist on the funnel's own binned training codes, as the device
+    fit launches it: rowsample 0.5 of the rows padded to a power of two;
+    at level 0 (colsample 0.7 of the features, 16 node slots, every
+    sampled row in node 0) and at the leaf sums (the rows' leaves under
+    the trained forest's first tree: 1 column, 2^depth nodes, 1 bin)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.clustering import bucket_size
+    from repro_torch.core.gbdt import NUM_BINS
+
+    rng = np.random.default_rng(seed)
+    n, n_feat = codes.shape
+    nt = min(n, max(32, int(0.5 * n)))
+    r = bucket_size(nt)
+    rows = np.sort(rng.choice(n, size=nt, replace=False))
+    fs = np.sort(rng.choice(n_feat, size=max(1, int(0.7 * n_feat)), replace=False))
+    sub = np.zeros((fs.size, r), np.int32)
+    sub[:, :nt] = codes[rows][:, fs].T
+    node = np.full(r, -1, np.int32)
+    node[:nt] = 0
+    leaf = np.full(r, -1, np.int32)
+    idx = np.zeros(nt, np.int64)  # internal node of each sampled row, then its leaf
+    for _ in range(forest.depth):
+        go_right = codes[rows, forest.feat[0, idx]] > forest.thr[0, idx]
+        idx = 2 * idx + 1 + go_right
+    leaf[:nt] = idx - (2**forest.depth - 1)
+    g = rng.normal(size=r).astype(np.float32)
+    h = (rng.random(r) + 0.5).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+
+    g, h = dev(g), dev(h)
+    return [
+        tree_hist_case(dev(sub), dev(fs.astype(np.int32)), dev(node), g, h, 16, n_feat,
+                       NUM_BINS, f"{r}x{fs.size}, level 0 on the Session's binned training "
+                       "codes", record=False),
+        tree_hist_case(torch.zeros((1, r), dtype=torch.int32, device="cuda"),
+                       torch.zeros(1, dtype=torch.int32, device="cuda"), dev(leaf), g, h,
+                       2**forest.depth, 1, 1, f"{r}x1, {2**forest.depth} nodes, 1 bin: the "
+                       "leaf sums of the Session's first tree", record=False),
+    ]
 
 
 def parts(out) -> tuple:
@@ -348,8 +551,9 @@ TOLERANCE_TEXT = {
 }
 
 
-def run_kernel_phase(cases: list[Case]) -> dict:
-    """Phase 3 → {name: record} for the kernels line (launches added later)."""
+def run_kernel_phase(cases: list[Case], every_kernel: bool = True) -> dict:
+    """Phase 3 → {name: record} for the kernels line (launches added later);
+    raises if ``every_kernel`` and a kernel of ``SOURCES`` has no case."""
     import torch
 
     from repro_torch.kernels import _build
@@ -370,27 +574,33 @@ def run_kernel_phase(cases: list[Case]) -> dict:
             if not torch.equal(got.argmin(dim=1), want.argmin(dim=1)):
                 raise AssertionError("pdist_sq: nearest centers differ from the plain version")
             extra = "; argmin equal"
+        if case.check is not None:
+            extra += "; " + case.check(got)
         ms = cuda_ms(lambda: kernel(*args), 20)
-        plain_ms = cuda_ms(lambda: plain(*args), 3)
+        plain_ms = cuda_ms(lambda: plain(*args), 1)
         lib_ms = cuda_ms(case.library[1], 20) if case.library else None
+        other_ms = time_other(case, want)
+        if other_ms is not None:
+            extra += f"; --compare-csrc build {spread(other_ms)}"
         bound_ms, bound_by = bound(case.nbytes, case.ops)
         tol = TOLERANCE_TEXT.get(case.tol, f"rtol {case.tol[0]:g} atol {case.tol[1]:g}"
                                  if isinstance(case.tol, tuple) else case.tol)
         print(f"[kernel] {name} {case.shape}: max_abs_err {err:.3g} ({tol}{extra}); "
-              f"two runs bit-equal; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), library "
-              f"{'%.4f ms (%s)' % (lib_ms, case.library[0]) if case.library else 'none'}",
+              f"two runs bit-equal; medians of {ROUNDS} rounds: {spread(ms)}, plain "
+              f"{spread(plain_ms)}, bound {bound_ms:.4f} ms ({bound_by}), library "
+              f"{'%s (%s)' % (spread(lib_ms), case.library[0]) if case.library else 'none'}",
               flush=True)
         if not case.record:
             continue
         src, replaces = SOURCES[name]
         records[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "launches": 0, "max_abs_err": err, "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
+            "plain_ms": plain_ms[0], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms[0] if lib_ms else None,
         }
     missing = set(SOURCES) - set(records)
-    if missing:
+    if every_kernel and missing:
         raise AssertionError(f"no operands for {sorted(missing)}")
     _build.LAUNCHES.reset()
     return records
@@ -524,8 +734,11 @@ def print_profile(prof, wall_s: float) -> None:
     print(f"[device] busy {busy_ns / 1e6:.1f} ms of {wall_ms:.1f} ms path wall "
           f"(idle share {1 - busy_ns / 1e6 / wall_ms:.4f}); {len(spans)} device events",
           flush=True)
-    for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"[device] {tot / 1e6:9.2f} ms x{n:<7} {name[:90]}", flush=True)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (tot, n)) in enumerate(ranked):
+        # the 12 largest, and every kernel of the port's own sources
+        if i < 12 or "(anonymous namespace)::" in name:
+            print(f"[device] {tot / 1e6:9.2f} ms x{n:<7} {name[:90]}", flush=True)
 
 
 def launches_of(names) -> dict:
@@ -676,6 +889,7 @@ def check_forest(sess, table, args) -> None:
           f"{x.shape[0]}x{x.shape[1]} codes, device fit {t_dev:.2f} s vs host fit {t_host:.2f} s: "
           f"bit-equal, and equal to the trained model's; {time.perf_counter() - t:.2f} s",
           flush=True)
+    run_kernel_phase(session_tree_hist_cases(codes, trained, args.seed), every_kernel=False)
 
 
 def report_answers(sess, table, planned, walls, held_out, args) -> None:
@@ -928,6 +1142,9 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     logs = _build.build_all()
+    if args.compare_csrc:
+        OTHER.update(build_other(args.compare_csrc))
+        print(f"[build] {args.compare_csrc}: {sorted(OTHER)}", flush=True)
     print(f"[build] {sorted(logs)} in {time.perf_counter() - t:.2f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
     for name, log in logs.items():

@@ -32,7 +32,7 @@ from repro_torch.kernels.telemetry import TraceRegistry
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("eval", "ingest", "pdist", "predicate", "tree_hist")
+SOURCES = ("eval", "groupagg", "ingest", "pdist", "predicate", "tree_hist")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +49,8 @@ SIGNATURES = {
     "eval": {
         # x, lo, hi, gmap, values, codes, out, B, C, G, V, R, radix, stream
         "repro_fused_eval": (_P,) * 7 + (_I,) * 6 + (_P,),
+    },
+    "groupagg": {
         # values, mask, codes, out, B, V, R, radix, stream
         "repro_group_aggregate": (_P,) * 4 + (_I,) * 4 + (_P,),
     },

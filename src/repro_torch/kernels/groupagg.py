@@ -3,8 +3,10 @@
     out[p, v, g] = Σ_r values[p, v, r] · mask[p, r] · 1[codes[p, r] = g]
 
 On a CUDA tensor `group_aggregate` launches ``repro_group_aggregate``
-(`csrc/eval.cu`, the predicate-free instance of the fused kernel's
-template); on a CPU tensor it runs `group_aggregate_plain`, which
+(`csrc/groupagg.cu`: lanes own rows, equal codes of a 32-row slice are
+summed by a fixed tree, warp-private accumulators over the whole radix;
+no float atomics, and a stack row's sums depend only on that row); on a
+CPU tensor it runs `group_aggregate_plain`, which
 contracts row-tile one-hots like the reference's
 `kernels/ref.py::blocked_onehot_aggregate`.  Rows with a zero mask or a
 code outside ``[0, num_groups)`` contribute nothing.
@@ -17,7 +19,7 @@ from repro_torch.kernels import _build
 
 # elements of one (P, tile, num_groups) one-hot in the plain versions
 ONEHOT_ELEMS = 1 << 26
-MAX_COMPONENTS = 32  # the kernel adds component v on lane v
+MAX_COMPONENTS = 32  # the kernel takes components in tiles of 4, up to 8 tiles
 
 
 def blocked_onehot_aggregate(values: torch.Tensor, codes: torch.Tensor,
@@ -57,7 +59,7 @@ def group_aggregate(values: torch.Tensor, mask: torch.Tensor, codes: torch.Tenso
     if v > MAX_COMPONENTS:
         raise ValueError(f"{name}: at most {MAX_COMPONENTS} components, got V={v}")
     out = torch.empty((p, v, num_groups), dtype=torch.float32, device=values.device)
-    lib = _build.library("eval")
+    lib = _build.library("groupagg")
     err = lib.repro_group_aggregate(
         _build.pointer(name, "values", values, torch.float32, (p, v, r)),
         _build.pointer(name, "mask", mask, torch.float32, (p, r)),

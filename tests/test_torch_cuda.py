@@ -11,7 +11,8 @@ histograms and their prefix sums must be bit-equal to the plain versions; f32 su
 reference's own tolerance (rtol 1e-5, atol 1e-4 — the summation order
 differs), pairwise distances at rtol 1e-4, atol 1e-3 with the same
 nearest centers, and every kernel must give the same bits on a second
-run (no float atomics).  The device GBDT fit on the card exports the
+run (no float atomics); a group_aggregate launch over the first stack
+rows gives the bits a full launch gives them.  The device GBDT fit on the card exports the
 host fit's forest bit for bit.  A stream of appends folded on the card
 equals a cold rebuild of the grown table bit for bit.
 """
@@ -108,6 +109,54 @@ def test_group_aggregate_matches_plain(cuda, p, v, r, g):
     want = groupagg.group_aggregate_plain(*args, g)
     assert torch.equal(got, again)
     _check_sums(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _agg_case(kind, seed=5):
+    """(values, mask, codes, radix) of one stress case of group_aggregate."""
+    rng = np.random.default_rng(seed)
+    p, v, r, radix, density = {
+        "sparse-mask": (6, 4, 4096, 2048, 0.03),
+        "radix-4": (6, 4, 4096, 4, 1.0),
+        "ragged": (5, 3, 3001, 130, 0.7),  # R off every step and tile
+        "v-32": (3, 32, 1500, 512, 0.8),  # 8 component tiles
+        "group-tiles": (2, 4, 700, 13000, 1.0),  # radix over one warp's accumulator
+        "one-group": (4, 4, 2048, 1, 1.0),  # every set spans the warp
+    }[kind]
+    values = rng.normal(size=(p, v, r)).astype(np.float32)
+    values[:, 0] = 1.0  # component 0 counts rows
+    mask = (rng.random((p, r)) < density).astype(np.float32)
+    codes = rng.integers(-1, radix + 2, size=(p, r)).astype(np.int32)
+    return values, mask, codes, radix
+
+
+@pytest.mark.parametrize("kind", ["sparse-mask", "radix-4", "ragged", "v-32", "group-tiles",
+                                  "one-group"])
+def test_group_aggregate_stress_matches_plain(cuda, kind):
+    values, mask, codes, radix = _agg_case(kind)
+    args = [torch.from_numpy(a).to(cuda) for a in (values, mask, codes)]
+    got = groupagg.group_aggregate(*args, radix)
+    again = groupagg.group_aggregate(*args, radix)
+    want = groupagg.group_aggregate_plain(*args, radix)
+    assert torch.equal(got, again)
+    _check_sums(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("radix", [4, 2048])
+def test_group_aggregate_slice_equals_full(cuda, radix):
+    """A stack row's sums depend only on that row: the first 16 rows
+    launched alone give the bits the full launch gives them (the
+    streaming path's delta == cold contract)."""
+    rng = np.random.default_rng(radix)
+    values = rng.normal(size=(40, 4, 2500)).astype(np.float32) * 100
+    values[:, 0] = 1.0
+    mask = np.ones((40, 2500), np.float32)
+    codes = rng.integers(0, radix, size=(40, 2500)).astype(np.int32)
+    full = [torch.from_numpy(a).to(cuda) for a in (values, mask, codes)]
+    part = [t[:16].contiguous() for t in full]
+    got_full = groupagg.group_aggregate(*full, radix)
+    got_part = groupagg.group_aggregate(*part, radix)
+    assert torch.equal(got_part, groupagg.group_aggregate(*part, radix))
+    np.testing.assert_array_equal(_bits(got_part), _bits(got_full[:16]))
 
 
 @pytest.mark.parametrize("shape", [(1, 128), (3, 100), (4, 1024), (7, 2050), (2, 16384)])
@@ -210,6 +259,53 @@ def test_tree_hist_matches_plain_bitwise(cuda, r, c, nn, f, nbins):
     np.testing.assert_array_equal(_bits(got), _bits(want))
     unsampled = np.setdiff1d(np.arange(f), fids.numpy())
     assert not got[:, :, torch.from_numpy(unsampled).to(cuda)].any()
+
+
+def _tree_hist_stress(kind, seed=11):
+    """(codes (R, C), feat ids, node, g, h, nodes, feats, bins) of one
+    stress case of tree_hist."""
+    rng = np.random.default_rng(seed)
+    if kind == "leaf-sum":  # gbdt's leaf sums: 1 column, 32 nodes, 1 bin
+        r, nt = 4096, 3000
+        codes = np.zeros((r, 1), np.int32)
+        fids = np.zeros(1, np.int32)
+        node = np.full(r, -1, np.int32)
+        node[:nt] = rng.integers(0, 32, size=nt)
+        nodes, f, nbins = 32, 1, 1
+    else:
+        r, c, f = {"level-0": (4096, 5, 9), "one-segment": (2048, 2, 3),
+                   "ragged": (3001, 3, 4)}[kind]
+        codes = rng.integers(0, 256, size=(r, c)).astype(np.int32)
+        fids = np.sort(rng.choice(f, size=c, replace=False)).astype(np.int32)
+        if kind == "level-0":  # every row in node 0; column 0 near-constant
+            node = np.zeros(r, np.int32)
+            node[-300:] = -1
+            codes[rng.random(r) < 0.97, 0] = 17
+            nodes = 16
+        elif kind == "one-segment":  # every 32-row step in one segment
+            node = np.full(r, 3, np.int32)
+            codes[:, 0] = 200
+            nodes = 4
+        else:
+            node = rng.integers(-1, 16, size=r).astype(np.int32)
+            nodes = 16
+        nbins = 256
+    g = (rng.normal(size=r) * 10.0 ** rng.integers(-3, 4, size=r)).astype(np.float32)
+    h = np.abs(rng.normal(size=r)).astype(np.float32)
+    return codes, fids, node, g, h, nodes, f, nbins
+
+
+@pytest.mark.parametrize("kind", ["level-0", "leaf-sum", "one-segment", "ragged"])
+def test_tree_hist_stress_matches_plain_bitwise(cuda, kind):
+    codes, fids, node, g, h, nodes, f, nbins = _tree_hist_stress(kind)
+    codes_t = torch.from_numpy(np.ascontiguousarray(codes.T)).to(cuda)
+    args = (codes_t.T, *[torch.from_numpy(a).to(cuda) for a in (fids, node, g, h)],
+            nodes, f, nbins)
+    got = tree_hist.tree_hist(*args)
+    again = tree_hist.tree_hist(*args)
+    want = tree_hist.tree_hist_plain(*args)
+    np.testing.assert_array_equal(_bits(got), _bits(again))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("shape", [(3, 256), (2, 16, 476, 256), (70, 1000)])

@@ -78,6 +78,35 @@ def test_tree_hist_plain_matches_ref_bitwise(r, c, nn, f):
     np.testing.assert_array_equal(_bits(got[:, :, unsampled]), 0)  # exactly +0.0
 
 
+@pytest.mark.parametrize("kind", ["constant-column", "one-node", "leaf-sum"])
+def test_tree_hist_plain_matches_ref_at_skewed_shapes(kind):
+    """The shapes that stress the CUDA kernel's design, where one segment
+    holds most rows: a constant column, every row in node 0 (level 0),
+    and the device fit's leaf sums (1 column, 2^depth nodes, 1 bin)."""
+    rng = np.random.default_rng(7)
+    r = 2000
+    if kind == "leaf-sum":
+        codes, fids, nn, f, nbins = np.zeros((r, 1), np.int32), np.zeros(1, np.int32), 32, 1, 1
+        node = rng.integers(-1, nn, size=r).astype(np.int32)
+    else:
+        codes = rng.integers(0, 256, size=(r, 3)).astype(np.int32)
+        fids, nn, f, nbins = np.array([0, 2, 4], np.int32), 16, 5, 256
+        node = rng.integers(-1, nn, size=r).astype(np.int32)
+        if kind == "constant-column":
+            codes[:, 1] = 9
+        else:
+            node = np.where(node >= 0, 0, -1).astype(np.int32)
+    g = (rng.normal(size=r) * 10.0 ** rng.integers(-3, 4, size=r)).astype(np.float32)
+    h = np.abs(rng.normal(size=r)).astype(np.float32)
+    want = np.asarray(ref_kernels.tree_hist_ref(
+        jnp.asarray(codes), jnp.asarray(fids), jnp.asarray(node), jnp.asarray(g),
+        jnp.asarray(h), nn, f, nbins))
+    got = tree_hist.tree_hist(*map(torch.from_numpy, (codes, fids, node, g, h)), nn, f,
+                              nbins).numpy()
+    assert got.shape == (2, nn, f, nbins)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
 def test_tree_hist_plain_drops_out_of_range_codes():
     codes = torch.tensor([[0], [3], [-1], [4]], dtype=torch.int32)
     ones = torch.ones(4)

@@ -77,7 +77,8 @@ def test_bincount(lowering, shape, card):
 
 
 @pytest.mark.parametrize("lowering", LOWERINGS)
-@pytest.mark.parametrize("p,v,r,g", [(2, 1, 256, 4), (3, 4, 1000, 37), (1, 3, 2048, 600)])
+@pytest.mark.parametrize("p,v,r,g", [(2, 1, 256, 4), (3, 4, 1000, 37), (1, 3, 2048, 600),
+                                     (2, 4, 1000, 2048), (3, 4, 777, 4)])
 def test_group_aggregate(lowering, p, v, r, g):
     rng = np.random.default_rng(4)
     values = rng.normal(size=(p, v, r)).astype(np.float32)
