@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py [--partitions 1024] [--rows 16384] [--queries 48]
                           [--held-out 16] [--offline-partitions 256] [--seed 0]
-                          [--compare-csrc DIR]
 
 Phases, each fatal on failure:
 
@@ -18,9 +17,9 @@ Phases, each fatal on failure:
    function (a yardstick the port never calls), each the median of
    ``ROUNDS`` timed rounds with their min and max, and the least time the
    card could take; then cases that stress the designs (sparse masks, a
-   radix of 4, the first 16 stack rows alone against the full launch,
-   level-0 and leaf-sum GBDT histograms), checked and timed but not
-   recorded;
+   radix of 4 and the widest radix bucket, the first 16 stack rows alone
+   against the full launch, level-0 and leaf-sum GBDT histograms), checked
+   and timed (their plain versions untimed) but not recorded;
 4. the offline plane (slice 1's path) on the first ``--offline-partitions``
    partitions: ``build_sketches`` and ``per_partition_answers_batch`` on
    the default options, every one of its kernels launched, held against
@@ -103,10 +102,6 @@ def parse_args(argv=None):
     ap.add_argument("--held-out", type=int, default=16)
     ap.add_argument("--offline-partitions", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--compare-csrc", default=None, metavar="DIR",
-                    help="also build the kernel sources in DIR (e.g. a parent commit's "
-                         "src/repro_torch/csrc) and time their launchers on every phase-3 "
-                         "case, for a before/after in one run")
     return ap.parse_args(argv)
 
 
@@ -135,65 +130,6 @@ def cuda_ms(fn, iters: int, rounds: int = ROUNDS) -> tuple[float, float, float]:
 
 def spread(t: tuple[float, float, float]) -> str:
     return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
-
-
-# launcher symbol → library built from the --compare-csrc sources
-OTHER: dict = {}
-
-
-def build_other(csrc: str) -> dict:
-    """Every ``*.cu`` in ``csrc``, built with the port's nvcc flags (one
-    process each, all at once) into ``build/compare/``: → {launcher
-    symbol: loaded library}, each launcher typed as the port types it."""
-    import ctypes
-    import pathlib
-
-    from repro_torch.kernels import _build
-
-    out = pathlib.Path(ROOT) / "build" / "compare"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for src in sorted(pathlib.Path(csrc).glob("*.cu")):
-        so = out / f"lib{src.stem}.so"
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)]
-        jobs.append((so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True)))
-    symbols = {}
-    for so, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {so.name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        for fns in _build.SIGNATURES.values():
-            for fn, argtypes in fns.items():
-                if hasattr(lib, fn):
-                    getattr(lib, fn).argtypes = list(argtypes)
-                    getattr(lib, fn).restype = ctypes.c_int
-                    symbols[fn] = lib
-    return symbols
-
-
-def time_other(case: Case, want) -> tuple | None:
-    """``case``'s kernel launched through the --compare-csrc build of its
-    launcher, held to the plain version's output ``want`` and timed; None
-    without such a build."""
-    import pathlib
-
-    from repro_torch.kernels import _build
-
-    other = OTHER.get(f"repro_{case.name}")
-    if other is None:
-        return None
-    lib = pathlib.Path(SOURCES[case.name][0]).stem
-    mine = _build.library(lib)
-    _build._libs[lib] = other  # the wrapper serves whatever library is loaded
-    try:
-        compare(case.kernel(*case.args), want, case.tol)
-        return cuda_ms(lambda: case.kernel(*case.args), 20)
-    finally:
-        _build._libs[lib] = mine
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -251,16 +187,24 @@ def group_aggregate_case(values, mask, codes, radix, shape, record=True, check=N
 
 def group_aggregate_stress(values, mask, codes, radix, seed: int) -> list[Case]:
     """The eval chunk with a 5% mask, with its codes folded to a radix
-    of 4, and its first 16 stack rows alone, which must give the bits the
-    full launch gives them (the streaming path's delta == cold)."""
+    of 4, with seeded codes over the widest radix bucket the census can
+    give (``MAX_GROUPS``: one block of three warps an SM), and its first
+    16 stack rows alone, which must give the bits the full launch gives
+    them (the streaming path's delta == cold)."""
     import torch
 
     from repro_torch.kernels import groupagg
+    from repro_torch.queries.device import _radix_bucket
+    from repro_torch.queries.engine import MAX_GROUPS
 
     b, v, r = values.shape
     gen = torch.Generator().manual_seed(seed)
     sparse = (torch.rand((b, r), generator=gen) < 0.05).to(torch.float32).to(values.device)
     codes4 = torch.where(codes >= 0, codes % 4, codes)
+    wide = _radix_bucket(MAX_GROUPS)
+    codes_wide = torch.where(
+        codes >= 0, torch.randint(0, wide, (b, r), generator=gen, dtype=torch.int32)
+        .to(codes.device), codes)
     full = groupagg.group_aggregate(values, mask, codes, radix)
     head = [t[:16] for t in (values, mask, codes)]
 
@@ -275,6 +219,8 @@ def group_aggregate_stress(values, mask, codes, radix, seed: int) -> list[Case]:
                              record=False),
         group_aggregate_case(values, mask, codes4, 4, f"{shape}, codes mod 4, radix 4",
                              record=False),
+        group_aggregate_case(values, mask, codes_wide, wide,
+                             f"{shape}, seeded codes, radix {wide}", record=False),
         group_aggregate_case(*head, radix, f"16x{v}x{r}, radix {radix}, first 16 stack rows",
                              record=False, check=same_as_full),
     ]
@@ -577,17 +523,17 @@ def run_kernel_phase(cases: list[Case], every_kernel: bool = True) -> dict:
         if case.check is not None:
             extra += "; " + case.check(got)
         ms = cuda_ms(lambda: kernel(*args), 20)
-        plain_ms = cuda_ms(lambda: plain(*args), 1)
+        # the plain version's time is recorded only; a stress case uses it
+        # for the check above
+        plain_ms = cuda_ms(lambda: plain(*args), 1) if case.record else None
         lib_ms = cuda_ms(case.library[1], 20) if case.library else None
-        other_ms = time_other(case, want)
-        if other_ms is not None:
-            extra += f"; --compare-csrc build {spread(other_ms)}"
         bound_ms, bound_by = bound(case.nbytes, case.ops)
         tol = TOLERANCE_TEXT.get(case.tol, f"rtol {case.tol[0]:g} atol {case.tol[1]:g}"
                                  if isinstance(case.tol, tuple) else case.tol)
         print(f"[kernel] {name} {case.shape}: max_abs_err {err:.3g} ({tol}{extra}); "
               f"two runs bit-equal; medians of {ROUNDS} rounds: {spread(ms)}, plain "
-              f"{spread(plain_ms)}, bound {bound_ms:.4f} ms ({bound_by}), library "
+              f"{spread(plain_ms) if plain_ms else 'not timed'}, bound {bound_ms:.4f} ms "
+              f"({bound_by}), library "
               f"{'%s (%s)' % (spread(lib_ms), case.library[0]) if case.library else 'none'}",
               flush=True)
         if not case.record:
@@ -1142,9 +1088,6 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     logs = _build.build_all()
-    if args.compare_csrc:
-        OTHER.update(build_other(args.compare_csrc))
-        print(f"[build] {args.compare_csrc}: {sorted(OTHER)}", flush=True)
     print(f"[build] {sorted(logs)} in {time.perf_counter() - t:.2f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
     for name, log in logs.items():

@@ -5,10 +5,8 @@
 //                          interval predicate folded into the group codes,
 //                          then masked segment sums.
 //
-// Only the kPred = true instance of eval_kernel is launched.  The
-// predicate-free launch (repro_group_aggregate) has a kernel of its own in
-// groupagg.cu; the template is left as it was measured, for the redesign
-// of fused_eval to start from.
+// The predicate-free launch (repro_group_aggregate) has a kernel of its
+// own in groupagg.cu.
 //
 // Bound on H100: memory.  Each row costs C + V + 1 reads of 4 bytes and a
 // handful of compares; the output is V * radix floats per stack row, so
@@ -40,13 +38,11 @@ constexpr int kMaxClauses = 64;  // clause bits of one row live in a uint64
 constexpr int kMaxComponents = 32;  // lane v adds component v
 constexpr size_t kSmemBudget = 96 * 1024;  // accumulators of one block
 
-template <bool kPred>
 __global__ void __launch_bounds__(kThreads)
 eval_kernel(const float* __restrict__ x,       // (B, C, R) clause columns
             const float* __restrict__ lo,      // (B, C) inclusive bounds
             const float* __restrict__ hi,      // (B, C) exclusive bounds
             const float* __restrict__ gmap,    // (B, C, G) clause -> OR-group
-            const float* __restrict__ mask,    // (B, R) row mask (!kPred)
             const float* __restrict__ values,  // (B, V, R) components
             const int* __restrict__ codes,     // (B, R) group codes
             float* __restrict__ out,           // (B, V, radix)
@@ -64,17 +60,15 @@ eval_kernel(const float* __restrict__ x,       // (B, C, R) clause columns
   float* acc = acc_all + (size_t)warp * V * tile;
 
   for (int i = threadIdx.x; i < kWarps * V * tile; i += kThreads) acc_all[i] = 0.f;
-  if (kPred) {
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      s_lo[c] = lo[b * C + c];
-      s_hi[c] = hi[b * C + c];
-    }
-    for (int g = threadIdx.x; g < G; g += kThreads) {
-      unsigned long long m = 0;
-      for (int c = 0; c < C; ++c)
-        if (gmap[(b * C + c) * G + g] > 0.f) m |= 1ull << c;
-      s_members[g] = m;
-    }
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    s_lo[c] = lo[b * C + c];
+    s_hi[c] = hi[b * C + c];
+  }
+  for (int g = threadIdx.x; g < G; g += kThreads) {
+    unsigned long long m = 0;
+    for (int c = 0; c < C; ++c)
+      if (gmap[(b * C + c) * G + g] > 0.f) m |= 1ull << c;
+    s_members[g] = m;
   }
   __syncthreads();
 
@@ -83,21 +77,15 @@ eval_kernel(const float* __restrict__ x,       // (B, C, R) clause columns
   for (int base = warp * 32; base < R; base += kThreads) {
     const int row = base + lane;
     bool pass = row < R;
-    float m = 1.f;
     int code = -1;
     if (pass) {
-      if (kPred) {
-        const float* xb = x + b * C * R + row;
-        unsigned long long bits = 0;
-        for (int c = 0; c < C; ++c) {
-          const float v = xb[(size_t)c * R];
-          if (v >= s_lo[c] && v < s_hi[c]) bits |= 1ull << c;
-        }
-        for (int g = 0; g < G; ++g) pass = pass && (bits & s_members[g]) != 0ull;
-      } else {
-        m = mask[b * R + row];
-        pass = m != 0.f;
+      const float* xb = x + b * C * R + row;
+      unsigned long long bits = 0;
+      for (int c = 0; c < C; ++c) {
+        const float v = xb[(size_t)c * R];
+        if (v >= s_lo[c] && v < s_hi[c]) bits |= 1ull << c;
       }
+      for (int g = 0; g < G; ++g) pass = pass && (bits & s_members[g]) != 0ull;
       code = cb[row];
       pass = pass && code >= g0 && code < g0 + gw;
     }
@@ -106,8 +94,7 @@ eval_kernel(const float* __restrict__ x,       // (B, C, R) clause columns
       const int j = __ffs(todo) - 1;
       todo &= todo - 1;
       const int cj = __shfl_sync(0xffffffffu, code, j) - g0;
-      const float mj = __shfl_sync(0xffffffffu, m, j);
-      if (lane < V) acc[lane * tile + cj] += vb[(size_t)lane * R + base + j] * mj;
+      if (lane < V) acc[lane * tile + cj] += vb[(size_t)lane * R + base + j];
     }
   }
   __syncthreads();
@@ -127,24 +114,6 @@ int pick_tile(int V, int radix) {
   return want < cap ? want : cap;
 }
 
-template <bool kPred>
-int launch(const float* x, const float* lo, const float* hi, const float* gmap,
-           const float* mask, const float* values, const int* codes, float* out,
-           int B, int C, int G, int V, int R, int radix, void* stream) {
-  if (C < 0 || C > kMaxClauses || G < 0 || G > kMaxClauses || V < 1 ||
-      V > kMaxComponents || R < 0 || radix < 1 || B < 0)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaGetLastError();
-  const int tile = pick_tile(V, radix);
-  const size_t smem = (size_t)kWarps * V * tile * sizeof(float);
-  cudaFuncSetAttribute(eval_kernel<kPred>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid(B, (radix + tile - 1) / tile);
-  eval_kernel<kPred><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, lo, hi, gmap, mask, values, codes, out, C, G, V, R, radix, tile);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -152,8 +121,18 @@ extern "C" {
 int repro_fused_eval(const float* x, const float* lo, const float* hi, const float* gmap,
                      const float* values, const int* codes, float* out, int B, int C,
                      int G, int V, int R, int radix, void* stream) {
-  return launch<true>(x, lo, hi, gmap, nullptr, values, codes, out, B, C, G, V, R,
-                      radix, stream);
+  if (C < 0 || C > kMaxClauses || G < 0 || G > kMaxClauses || V < 1 ||
+      V > kMaxComponents || R < 0 || radix < 1 || B < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  const int tile = pick_tile(V, radix);
+  const size_t smem = (size_t)kWarps * V * tile * sizeof(float);
+  cudaFuncSetAttribute(eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  dim3 grid(B, (radix + tile - 1) / tile);
+  eval_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      x, lo, hi, gmap, values, codes, out, C, G, V, R, radix, tile);
+  return (int)cudaGetLastError();
 }
 
 const char* repro_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

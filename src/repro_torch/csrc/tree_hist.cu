@@ -42,7 +42,9 @@
 // by its longest segment's fold, which the contract makes serial.
 //
 // At most 32 segments per column (the leaf sums: 1 column, 32 nodes, 1
-// bin) would leave 4 segments to a warp and a clash in most steps. There a
+// bin) would leave 4 segments to a warp and a clash in most steps (on an
+// NVIDIA H100 80GB HBM3 at 700 W, tree_hist_kernel took 2.0x the time of
+// the kernel below on uniform leaves; PERF.md section 6). There a
 // block of 16 warps stages 2048 rows at a time and records, for each
 // 32-row step and segment, the mask of the step's lanes in that segment
 // (integer atomicOr of the lanes' bits, which is exact in any order); one
