@@ -12,14 +12,20 @@ Phases, each fatal on failure:
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the main path hands it: counts, histograms, bincounts, GBDT
    histograms and their prefix sums bit-equal, f32 sums and distances
-   within the tolerance printed beside them; with the kernel's time, the
-   plain version's and that of a PyTorch library call computing the same
-   function (a yardstick the port never calls), each the median of
-   ``ROUNDS`` timed rounds with their min and max, and the least time the
-   card could take; then cases that stress the designs (sparse masks, a
-   radix of 4 and the widest radix bucket, the first 16 stack rows alone
-   against the full launch, level-0 and leaf-sum GBDT histograms), checked
-   and timed (their plain versions untimed) but not recorded;
+   within the tolerance printed beside them; with the kernel's time (a
+   replay of a CUDA graph of its calls: the card's time, beside the older
+   reading from events around a Python loop, the host's dispatch where
+   that is longer), the plain version's and that of a PyTorch library
+   call computing the same function (a yardstick the port never calls;
+   from a graph where it can be captured), each the median of ``ROUNDS``
+   timed rounds with their min and max, and the least time the card could
+   take; then further shapes of the path (pdist_sq at each of feature
+   selection's center buckets, fused_eval at a planner chunk read) and
+   cases that stress the designs (sparse masks, a radix of 4 and the
+   widest radix bucket, the first 16 stack rows alone against the full
+   launch, level-0 and leaf-sum GBDT histograms), checked and timed (their
+   plain versions untimed), listed under their kernel's ``cases``; and
+   whether ``torch.cumsum`` gives cumsum_seq's bits;
 4. the offline plane (slice 1's path) on the first ``--offline-partitions``
    partitions: ``build_sketches`` and ``per_partition_answers_batch`` on
    the default options, every one of its kernels launched, held against
@@ -105,10 +111,66 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def graph_ms(fn, iters: int, rounds: int = ROUNDS) -> tuple[float, float, float]:
+    """Device time of ``fn``: ``iters`` calls captured in one CUDA graph
+    (after a warm-up call on a side stream, as capture asks), the graph
+    replayed once a round between CUDA events → (median, min, max) over
+    ``rounds`` rounds of the time a call.  The replay launches the kernels
+    back to back with no host work between them, so a kernel shorter than
+    the host's dispatch of one call is timed on the card, not on the host."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    torch.cuda.synchronize()
+    return statistics.median(times), min(times), max(times)
+
+
+def library_ms(fn, iters: int) -> tuple[tuple[float, float, float], str]:
+    """A library call's time and how it was taken: from a CUDA graph like
+    the kernels, or, where the call cannot be captured (it reads a result
+    back on the host, as ``torch.bincount`` does to size its output), from
+    CUDA events around a loop of calls, host dispatch included."""
+    try:
+        return graph_ms(fn, iters), "graph"
+    except RuntimeError:
+        import torch
+
+        torch.cuda.synchronize()
+        return cuda_ms(fn, iters), "events"
+
+
 def cuda_ms(fn, iters: int, rounds: int = ROUNDS) -> tuple[float, float, float]:
-    """Device time of ``fn`` (CUDA events), after one warm-up call: the
-    mean over ``iters`` launches in each of ``rounds`` rounds →
-    (median, min, max) of the rounds."""
+    """Time of ``fn`` from CUDA events around a loop of ``iters`` calls
+    from Python, after one warm-up call: the mean over the ``iters`` calls
+    in each of ``rounds`` rounds → (median, min, max) of the rounds.  The
+    host dispatches each call while the card runs the last, so where a
+    call's kernels take less time than its dispatch this measures the
+    host's dispatch per call."""
     import statistics
 
     import torch
@@ -226,10 +288,53 @@ def group_aggregate_stress(values, mask, codes, radix, seed: int) -> list[Case]:
     ]
 
 
-def kernel_cases(table, queries, dev) -> list[Case]:
+def fused_eval_case(args, shape, record=True) -> Case:
+    """fused_eval on these operands.  Bytes: clause columns and descriptors
+    for every row, values and codes only for the rows that pass; ops: two
+    compares a clause, V adds a pass."""
+    from repro_torch.kernels import fused
+
+    xs, lo, hi, gmap, values, codes, radix = args
+    keep = fused.predicate_rows(xs, lo, hi, gmap) & (codes >= 0) & (codes < radix)
+    b, v, _ = values.shape
+    passing = int(keep.sum())
+    nbytes = (sum(t.numel() * 4 for t in (xs, lo, hi, gmap)) + passing * (v + 1) * 4
+              + b * v * radix * 4)
+    return Case("fused_eval", fused.fused_eval, fused.fused_eval_plain, args, "sums", nbytes,
+                2 * xs.numel() + passing * v, None, shape, record)
+
+
+def chunk_read_case(table, held_out, dev) -> Case:
+    """fused_eval as the planner's chunk reads launch it: the first held-out
+    query with a predicate the kernel takes, on a 16-partition subset table
+    of its own (`AnswerStore.get_subset`), so B = 16 stack rows."""
+    import numpy as np
+
+    from repro_torch.backends import ExecOptions
+    from repro_torch.data.table import Table
+    from repro_torch.planner.planner import PlannerConfig
+    from repro_torch.queries import device
+    from repro_torch.queries.engine import EvalCache
+
+    ids = np.arange(PlannerConfig().chunk)
+    view = Table(table.schema, {k: v[ids] for k, v in table.columns.items()},
+                 name=f"{table.name}/subset")
+    cache = EvalCache(view, options=ExecOptions(device=str(dev)))
+    for q in held_out:
+        chunks, _ = device.plan_launches(view, [q], cache)
+        if chunks and chunks[0][0][1].sig.has_predicate:
+            _, args = device.kernel_call([pl for _, pl in chunks[0]], cache)
+            shape = ("x".join(str(s) for s in args[0].shape)
+                     + f", radix {args[-1]}, a planner chunk read")
+            return fused_eval_case(args, shape, record=False)
+    raise AssertionError("no held-out query reads through fused_eval")
+
+
+def kernel_cases(table, queries, held_out, dev) -> list[Case]:
     """The offline plane's kernels with the operands the main path hands
     them: one numeric and one categorical column of the table, and the
-    first stacked chunk of each eval kernel in the workload's launch order;
+    first stacked chunk of each eval kernel in the workload's launch order
+    (and fused_eval at a planner chunk read of a held-out query);
     predicate_eval on the clauses of the workload query with the most of
     them, with the shared (C, G) map that `predicate_mask_device` passes
     and again with per-partition bounds and a (P, C, G) map."""
@@ -237,7 +342,7 @@ def kernel_cases(table, queries, dev) -> list[Case]:
     import torch
 
     from repro_torch.backends import ExecOptions
-    from repro_torch.kernels import fused, histogram, moments, predicate
+    from repro_torch.kernels import histogram, moments, predicate
     from repro_torch.queries import device
     from repro_torch.queries.engine import EvalCache
 
@@ -294,17 +399,8 @@ def kernel_cases(table, queries, dev) -> list[Case]:
             cases.append(group_aggregate_case(values, mask, codes_c, radix, shape))
             cases += group_aggregate_stress(values, mask, codes_c, radix, seed=len(cases))
             continue
-        # bytes: clause columns and descriptors for every row, values and
-        # codes only for the rows that pass; ops: two compares a clause, V
-        # adds a pass
-        xs, lo, hi, gmap, values, codes_c, _ = args
-        keep = fused.predicate_rows(xs, lo, hi, gmap) & (codes_c >= 0) & (codes_c < radix)
-        b, v, _ = values.shape
-        passing = int(keep.sum())
-        nbytes = (sum(t.numel() * 4 for t in (xs, lo, hi, gmap)) + passing * (v + 1) * 4
-                  + b * v * radix * 4)
-        cases.append(Case(name, fused.fused_eval, fused.fused_eval_plain, args, "sums", nbytes,
-                          2 * xs.numel() + passing * v, None, shape))
+        cases.append(fused_eval_case(args, shape))
+        cases.append(chunk_read_case(table, held_out, dev))
 
     canon = max((device.canonicalize_predicate(table, q.predicate, cache) for q in queries),
                 key=lambda c: -1 if c is None else len(c.cols))
@@ -355,14 +451,15 @@ def picker_cases(n_rows: int, n_feat: int, n_partitions: int, dev, seed: int) ->
     """The picker's kernels at the Session path's shapes, from seeded data:
     one GBDT level (the funnel fit's rows, sampled features and 16 nodes)
     and the prefix sums of its histograms; one KMeans assignment of feature
-    selection (every partition against its largest cluster bucket).  Not
-    recorded: tree_hist at level 0 (every row in node 0) with one
-    near-constant column, and at the leaf-sum shape (1 column, 32 nodes,
-    1 bin)."""
+    selection (every partition against its largest cluster bucket, then
+    against the two other buckets, not recorded).  Not recorded: tree_hist
+    at level 0 (every row in node 0) with one near-constant column, and at
+    the leaf-sum shape (1 column, 32 nodes, 1 bin)."""
     import numpy as np
     import torch
 
     from repro_torch.core.clustering import bucket_size
+    from repro_torch.core.featsel import DEFAULT_BUDGET_FRACS
     from repro_torch.core.gbdt import NUM_BINS
     from repro_torch.kernels import pdist, tree_hist
 
@@ -384,10 +481,15 @@ def picker_cases(n_rows: int, n_feat: int, n_partitions: int, dev, seed: int) ->
                                 f"{r}x{c}, {nodes} nodes, {n_feat} features"))
     hist = tree_hist.tree_hist(*cases[-1].args)
     out_elems = hist.numel()
+
+    def same_as_cumsum(out):  # is torch.cumsum the same function, bit for bit?
+        same = torch.equal(out.view(torch.int32), torch.cumsum(hist, dim=-1).view(torch.int32))
+        return f"torch.cumsum {'bit-equal' if same else 'NOT bit-equal'} to cumsum_seq"
+
     cases.append(Case("cumsum_seq", tree_hist.cumsum_seq, tree_hist.cumsum_seq_plain, (hist,),
                       "bits", 2 * out_elems * 4, out_elems,
                       ("torch.cumsum", lambda: torch.cumsum(hist, dim=-1)),
-                      "x".join(str(s) for s in hist.shape)))
+                      "x".join(str(s) for s in hist.shape), check=same_as_cumsum))
     # level 0: every live row in node 0, column 0 near-constant (97% of the
     # rows in one bin, so one segment holds most rows)
     codes0 = codes_t.clone()
@@ -404,15 +506,19 @@ def picker_cases(n_rows: int, n_feat: int, n_partitions: int, dev, seed: int) ->
                                 torch.from_numpy(leaf).to(dev), g, h, 32, 1, 1,
                                 f"{r}x1, 32 nodes, 1 bin (leaf sums)", record=False))
     # pdist_sq: feature selection clusters every partition (a power-of-two
-    # row bucket) into its largest budget, 20% of the partitions
-    n, k = bucket_size(n_partitions), bucket_size(int(0.2 * n_partitions))
+    # row bucket) into each budget's center bucket; recorded at the largest
+    # (20% of the partitions), then the two others (a third of the
+    # launches each)
+    n = bucket_size(n_partitions)
     x = torch.from_numpy(rng.normal(size=(n, n_feat)).astype(np.float32)).to(dev)
-    cent = torch.from_numpy(rng.normal(size=(k, n_feat)).astype(np.float32)).to(dev)
-    cases.append(Case("pdist_sq", pdist.pdist_sq, pdist.pdist_sq_plain, (x, cent), (1e-4, 1e-3),
-                      (n * n_feat + k * n_feat + n * k) * 4,
-                      2 * n * k * n_feat + 2 * (n + k) * n_feat,
-                      ("torch.cdist(x, c) ** 2", lambda: torch.cdist(x, cent) ** 2),
-                      f"{n}x{n_feat} by {k}x{n_feat}"))
+    for frac in sorted(DEFAULT_BUDGET_FRACS, reverse=True):
+        k = bucket_size(int(frac * n_partitions))
+        cent = torch.from_numpy(rng.normal(size=(k, n_feat)).astype(np.float32)).to(dev)
+        cases.append(Case(
+            "pdist_sq", pdist.pdist_sq, pdist.pdist_sq_plain, (x, cent), (1e-4, 1e-3),
+            (n * n_feat + k * n_feat + n * k) * 4, 2 * n * k * n_feat + 2 * (n + k) * n_feat,
+            ("torch.cdist(x, c) ** 2", lambda c=cent: torch.cdist(x, c) ** 2),
+            f"{n}x{n_feat} by {k}x{n_feat}", record=frac == max(DEFAULT_BUDGET_FRACS)))
     return cases
 
 
@@ -522,29 +628,42 @@ def run_kernel_phase(cases: list[Case], every_kernel: bool = True) -> dict:
             extra = "; argmin equal"
         if case.check is not None:
             extra += "; " + case.check(got)
-        ms = cuda_ms(lambda: kernel(*args), 20)
-        # the plain version's time is recorded only; a stress case uses it
-        # for the check above
+        # the kernel's time from a CUDA graph of 20 calls; beside it the
+        # events around a Python loop of 20 calls (host dispatch per call
+        # where that is longer than the kernel)
+        ms = graph_ms(lambda: kernel(*args), 20)
+        dispatch = cuda_ms(lambda: kernel(*args), 20)
+        # the plain version's time is recorded only (events: it launches
+        # many kernels and some read back); a stress case uses it for the
+        # check above
         plain_ms = cuda_ms(lambda: plain(*args), 1) if case.record else None
-        lib_ms = cuda_ms(case.library[1], 20) if case.library else None
+        lib_ms, lib_how = library_ms(case.library[1], 20) if case.library else (None, None)
         bound_ms, bound_by = bound(case.nbytes, case.ops)
         tol = TOLERANCE_TEXT.get(case.tol, f"rtol {case.tol[0]:g} atol {case.tol[1]:g}"
                                  if isinstance(case.tol, tuple) else case.tol)
         print(f"[kernel] {name} {case.shape}: max_abs_err {err:.3g} ({tol}{extra}); "
-              f"two runs bit-equal; medians of {ROUNDS} rounds: {spread(ms)}, plain "
+              f"two runs bit-equal; medians of {ROUNDS} rounds: {spread(ms)} (graph), "
+              f"{spread(dispatch)} (events over a Python loop: host dispatch per call), plain "
               f"{spread(plain_ms) if plain_ms else 'not timed'}, bound {bound_ms:.4f} ms "
               f"({bound_by}), library "
-              f"{'%s (%s)' % (spread(lib_ms), case.library[0]) if case.library else 'none'}",
+              + (f"{spread(lib_ms)} ({lib_how}; {case.library[0]})" if case.library else "none"),
               flush=True)
+        shape_rec = {"shape": case.shape, "ms": ms[0], "ms_events": dispatch[0],
+                     "bound_ms": bound_ms, "library_ms": lib_ms[0] if lib_ms else None}
         if not case.record:
+            if name in records:
+                records[name]["cases"].append(shape_rec)
             continue
         src, replaces = SOURCES[name]
         records[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
-            "plain_ms": plain_ms[0], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms[0] if lib_ms else None,
+            "ms_events": dispatch[0], "plain_ms": plain_ms[0], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms[0] if lib_ms else None,
+            "library_timing": lib_how, "shape": case.shape, "cases": [],
         }
+        if case.check is not None:
+            records[name]["check"] = extra.lstrip("; ")
     missing = set(SOURCES) - set(records)
     if every_kernel and missing:
         raise AssertionError(f"no operands for {sorted(missing)}")
@@ -1104,8 +1223,9 @@ def main(argv=None) -> int:
           f"({len(table.schema)} columns), {len(queries)} queries, feature dim {n_feat}, "
           f"in {time.perf_counter() - t:.2f} s", flush=True)
 
+    held_out = WorkloadSpec(table, seed=args.seed + 1).sample_workload(args.held_out)
     records = run_kernel_phase(
-        kernel_cases(table, queries, dev)
+        kernel_cases(table, queries, held_out, dev)
         + picker_cases(args.queries * table.num_partitions, n_feat, table.num_partitions,
                        dev, args.seed))
 

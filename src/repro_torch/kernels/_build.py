@@ -5,8 +5,8 @@ Hopper (``sm_90a``) into a shared library under ``build/repro_torch_kernels/``
 at the repository root, then loaded with `ctypes`.  No PyTorch header is
 included, so a build takes seconds instead of the minutes a
 ``torch.utils.cpp_extension`` build takes.  The library's file name
-carries a hash of its source, so an edited source is never served by a
-stale build.
+carries a hash of its source and of the shared headers (``csrc/*.cuh``),
+so an edited source is never served by a stale build.
 
 Nothing is built at import: a wrapper calls `library` the first time it
 launches on a CUDA tensor, and `build_all` compiles every source in
@@ -92,7 +92,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the headers a source may include
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

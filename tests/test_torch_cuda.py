@@ -11,8 +11,10 @@ histograms and their prefix sums must be bit-equal to the plain versions; f32 su
 reference's own tolerance (rtol 1e-5, atol 1e-4 — the summation order
 differs), pairwise distances at rtol 1e-4, atol 1e-3 with the same
 nearest centers, and every kernel must give the same bits on a second
-run (no float atomics); a group_aggregate launch over the first stack
-rows gives the bits a full launch gives them.  The device GBDT fit on the card exports the
+run (no float atomics); a group_aggregate or fused_eval launch over the
+first stack rows gives the bits a full launch gives them, and fused_eval
+with a predicate every row passes gives group_aggregate's bits (one
+shared aggregation).  The device GBDT fit on the card exports the
 host fit's forest bit for bit.  A stream of appends folded on the card
 equals a cold rebuild of the grown table bit for bit.
 """
@@ -95,6 +97,60 @@ def test_fused_eval_empty_predicate_is_zero(cuda):
     assert torch.count_nonzero(fused.fused_eval(*args, 9)) == 0
 
 
+@pytest.mark.parametrize("radix,r,c", [(2048, 3000, 8), (8, 16384, 8), (512, 16384, 5),
+                                       (8, 16384, 2)])
+def test_fused_eval_slices_equal_full(cuda, radix, r, c):
+    """A stack row's sums depend only on that row: the first 1 and the
+    first 16 rows of a 160-row launch, launched alone, give the bits the
+    full launch gives them (the streaming path's delta == cold), at the
+    path's R = 16384 and off the 256-row step.  The small launches take
+    the kernel's prefetching instance (8, 4 + 1 or 1 prefetched clauses);
+    at radix 8 and 512 the full one takes the plain instance."""
+    arrs = _fused_case(160, c, min(3, c), 4, r, radix, seed=11)
+    full = [torch.from_numpy(a).to(cuda) for a in arrs]
+    got_full = fused.fused_eval(*full, radix)
+    _check_sums(got_full.cpu().numpy(), fused.fused_eval_plain(*full, radix).cpu().numpy())
+    for rows in (1, 16):
+        part = [t[:rows].contiguous() for t in full]
+        np.testing.assert_array_equal(_bits(fused.fused_eval(*part, radix)),
+                                      _bits(got_full[:rows]))
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_fused_eval_radix_4096_clause_bits_past_32(cuda, sparse):
+    """40 clauses in 3 OR-groups at radix 4096; with ``sparse`` OR-group 0
+    passes only through clause 39 (x >= 3.29, the columns being 2 N(0, 1):
+    about 5% of the rows)."""
+    cols, lo, hi, gmap, values, codes = _fused_case(4, 40, 3, 4, 5000, 4096, seed=12)
+    if sparse:
+        group0 = np.arange(40) % 3 == 0
+        lo[:, group0], hi[:, group0] = 1.0, -1.0  # always false
+        lo[:, 39], hi[:, 39] = 3.29, np.inf
+    args = [torch.from_numpy(a).to(cuda) for a in (cols, lo, hi, gmap, values, codes)]
+    got = fused.fused_eval(*args, 4096)
+    assert torch.equal(got, fused.fused_eval(*args, 4096))
+    want = fused.fused_eval_plain(*args, 4096)
+    if sparse:
+        passing = float(want[:, 0].sum()) / (4 * 5000)
+        assert 0.01 < passing < 0.1
+    _check_sums(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("v,radix,r", [(4, 4, 4000), (4, 2048, 4000), (3, 4096, 4000),
+                                       (7, 130, 4000), (4, 8, 16384), (4, 512, 16384)])
+def test_fused_eval_all_pass_equals_group_aggregate(cuda, v, radix, r):
+    """Both kernels fold rows with one routine (csrc/groupagg.cuh): with a
+    predicate that every row passes, fused_eval gives group_aggregate's
+    bits for a mask of ones."""
+    cols, lo, hi, gmap, values, codes = _fused_case(6, 2, 1, v, r, radix, seed=radix)
+    lo[:], hi[:] = -np.inf, np.inf  # no NaN in cols: every clause holds
+    args = [torch.from_numpy(a).to(cuda) for a in (cols, lo, hi, gmap, values, codes)]
+    got = fused.fused_eval(*args, radix)
+    ones = torch.ones(codes.shape, dtype=torch.float32, device=cuda)
+    want = groupagg.group_aggregate(args[4], ones, args[5], radix)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
 @pytest.mark.parametrize("p,v,r,g", [(2, 1, 256, 4), (3, 4, 1000, 37), (1, 3, 2048, 600),
                                      (2, 4, 5000, 4096)])
 def test_group_aggregate_matches_plain(cuda, p, v, r, g):
@@ -109,6 +165,25 @@ def test_group_aggregate_matches_plain(cuda, p, v, r, g):
     want = groupagg.group_aggregate_plain(*args, g)
     assert torch.equal(got, again)
     _check_sums(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("radix", [8, 512])
+def test_group_aggregate_long_rows_slice_equals_full(cuda, radix):
+    """At the path's R = 16384 and a narrow radix (8 warps a block, 8
+    steps a warp) the sums match the plain version and the first 16 rows
+    alone give the full launch's bits."""
+    rng = np.random.default_rng(radix + 1)
+    values = rng.normal(size=(24, 4, 16384)).astype(np.float32) * 10
+    values[:, 0] = 1.0
+    mask = (rng.random((24, 16384)) < 0.7).astype(np.float32)
+    codes = rng.integers(-1, radix + 2, size=(24, 16384)).astype(np.int32)
+    full = [torch.from_numpy(a).to(cuda) for a in (values, mask, codes)]
+    got = groupagg.group_aggregate(*full, radix)
+    assert torch.equal(got, groupagg.group_aggregate(*full, radix))
+    _check_sums(got.cpu().numpy(), groupagg.group_aggregate_plain(*full, radix).cpu().numpy())
+    part = [t[:16].contiguous() for t in full]
+    np.testing.assert_array_equal(_bits(groupagg.group_aggregate(*part, radix)),
+                                  _bits(got[:16]))
 
 
 def _agg_case(kind, seed=5):
@@ -319,7 +394,11 @@ def test_cumsum_seq_matches_plain_bitwise(cuda, shape):
 
 
 @pytest.mark.parametrize("n,k,f", [(16, 4, 8), (100, 13, 37), (256, 128, 130), (33, 5, 300),
-                                   (1024, 256, 476)])
+                                   (1024, 256, 476),
+                                   # feature selection's other center buckets, N and K
+                                   # off every tile, a ragged F (474: 4-byte copies)
+                                   (1024, 64, 476), (1024, 128, 476), (1017, 200, 476),
+                                   (1000, 96, 474)])
 def test_pdist_sq_matches_plain(cuda, n, k, f):
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda)
@@ -329,6 +408,28 @@ def test_pdist_sq_matches_plain(cuda, n, k, f):
     want = pdist.pdist_sq_plain(x, c)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-3)
     assert torch.equal(got.argmin(dim=1), want.argmin(dim=1))
+
+
+def test_pdist_sq_unaligned_operands(cuda):
+    """Operands that start off a 16-byte boundary take the 4-byte copies
+    and give the bits the aligned launch gives."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(300, 476)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.normal(size=(70, 476)).astype(np.float32)).to(cuda)
+    xs = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    cs = torch.empty(c.numel() + 1, device=cuda)[1:].view(c.shape)
+    xs.copy_(x)
+    cs.copy_(c)
+    assert xs.data_ptr() % 16 != 0
+    np.testing.assert_array_equal(_bits(pdist.pdist_sq(xs, cs)), _bits(pdist.pdist_sq(x, c)))
+
+
+def test_pdist_sq_nan_propagates(cuda):
+    x = torch.ones((20, 9), device=cuda)
+    x[3, 4] = float("nan")
+    c = torch.zeros((5, 9), device=cuda)
+    got = pdist.pdist_sq(x, c)
+    assert torch.isnan(got[3]).all() and not torch.isnan(got[torch.arange(20) != 3]).any()
 
 
 def test_device_fit_on_cuda_matches_host_fit(cuda):

@@ -5,7 +5,8 @@
 * `repro_torch.carry` moves tables and queries across unchanged;
 * a CUDA request without a usable CUDA device raises — the port never
   carries on on the CPU unless asked;
-* every `repro_torch` module imports with `jax` and `repro` blocked.
+* every `repro_torch` module imports with `jax` and `repro` blocked;
+* a kernel library's build name changes with its shared headers.
 """
 import os
 import pathlib
@@ -82,6 +83,25 @@ def test_kernel_on_unknown_device_raises():
         ops.bincount_op(torch.zeros((2, 8), dtype=torch.int32, device="meta"), 4)
     with pytest.raises(ValueError):  # operands on two devices
         ops.histogram_range_op(torch.zeros((2, 8)), torch.zeros((2, 3), device="meta"))
+
+
+def test_build_names_hash_shared_headers(tmp_path, monkeypatch):
+    """A library's file name carries a hash of its source and of the shared
+    headers it may include (csrc/groupagg.cuh), so an edited header is never
+    served by a stale build of eval.cu or groupagg.cu."""
+    from repro_torch.kernels import _build
+
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert (tmp_path / "groupagg.cuh").exists()
+    before = {n: _build._target(n) for n in ("eval", "groupagg")}
+    assert _build._target("eval") == before["eval"]  # the same sources, the same name
+    with open(tmp_path / "groupagg.cuh", "a") as fh:
+        fh.write("// edited\n")
+    for name, target in before.items():
+        assert _build._target(name) != target
 
 
 BLOCKER = """
