@@ -23,8 +23,11 @@ Phases, each fatal on failure:
    selection's center buckets, fused_eval at a planner chunk read) and
    cases that stress the designs (sparse masks, a radix of 4 and the
    widest radix bucket, the first 16 stack rows alone against the full
-   launch, level-0 and leaf-sum GBDT histograms), checked and timed (their
-   plain versions untimed), listed under their kernel's ``cases``; and
+   launch for group_aggregate, moments and histogram_range, moments on
+   non-finite rows, histogram_range on NaN, duplicate and unsorted edges
+   at NB 10 and 33, level-0 and leaf-sum GBDT histograms), checked and
+   timed (their plain versions untimed), listed under their kernel's
+   ``cases``; and
    whether ``torch.cumsum`` gives cumsum_seq's bits;
 4. the offline plane (slice 1's path) on the first ``--offline-partitions``
    partitions: ``build_sketches`` and ``per_partition_answers_batch`` on
@@ -269,12 +272,6 @@ def group_aggregate_stress(values, mask, codes, radix, seed: int) -> list[Case]:
         .to(codes.device), codes)
     full = groupagg.group_aggregate(values, mask, codes, radix)
     head = [t[:16] for t in (values, mask, codes)]
-
-    def same_as_full(out):
-        if not torch.equal(out.view(torch.int32), full[:16].view(torch.int32)):
-            raise AssertionError("group_aggregate: 16 stack rows alone differ from the full launch")
-        return "16 rows alone bit-equal to the full launch"
-
     shape = f"{b}x{v}x{r}"
     return [
         group_aggregate_case(values, sparse, codes, radix, f"{shape}, radix {radix}, 5% mask",
@@ -284,7 +281,7 @@ def group_aggregate_stress(values, mask, codes, radix, seed: int) -> list[Case]:
         group_aggregate_case(values, mask, codes_wide, wide,
                              f"{shape}, seeded codes, radix {wide}", record=False),
         group_aggregate_case(*head, radix, f"16x{v}x{r}, radix {radix}, first 16 stack rows",
-                             record=False, check=same_as_full),
+                             record=False, check=same_rows("group_aggregate", full)),
     ]
 
 
@@ -330,11 +327,104 @@ def chunk_read_case(table, held_out, dev) -> Case:
     raise AssertionError("no held-out query reads through fused_eval")
 
 
+def same_rows(name: str, full, rows: int = 16):
+    """Check of a launch over the first ``rows`` stack rows (partitions)
+    alone: it must give the bits the full launch gives them (the streaming
+    delta == cold)."""
+    import torch
+
+    def check(out):
+        if not torch.equal(out.view(torch.int32), full[:rows].view(torch.int32)):
+            raise AssertionError(f"{name}: {rows} rows alone differ from the full launch")
+        return f"{rows} rows alone bit-equal to the {full.shape[0]}-row launch"
+    return check
+
+
+def moments_case(x, shape, record=False, library=None, check=None) -> Case:
+    """moments on ``x``.  Bytes: the column and the output; ops: ten a value.
+    Beyond "close": min and max bit-equal to the plain version, log-min and
+    log-max within rtol 1e-6 (logf against torch.log: ulps)."""
+    import numpy as np
+
+    from repro_torch.kernels import moments
+
+    p, r = x.shape
+    want = moments.moments_plain(x).cpu().numpy()
+
+    def exact(out):
+        got = out.cpu().numpy()
+        np.testing.assert_array_equal(got[:, :2], want[:, :2])
+        np.testing.assert_allclose(got[:, 4:6], want[:, 4:6], rtol=1e-6)
+        return ("min/max bit-equal, log-min/max rtol 1e-6"
+                + (f"; {check(out)}" if check is not None else ""))
+    return Case("moments", moments.moments, moments.moments_plain, (x,), "close",
+                p * r * 4 + p * 8 * 4, p * r * 10, library, shape, record, exact)
+
+
+def histogram_case(x, e, shape, record=False, library=None, check=None) -> Case:
+    """histogram_range on ``x`` against edges ``e``, bit-equal.  Bytes: the
+    column, the edges and the output; ops: three a value and bucket."""
+    from repro_torch.kernels import histogram
+
+    p, r = x.shape
+    nb = e.shape[1] - 1
+    return Case("histogram_range", histogram.histogram_range,
+                histogram.histogram_range_plain, (x, e), "bits",
+                p * r * 4 + p * (2 * nb + 1) * 4, p * r * nb * 3, library, shape, record, check)
+
+
+def ingest_stress(data, dev, seed: int) -> list[Case]:
+    """Unrecorded moments and histogram_range cases off the main path's
+    shapes: moments on seeded mixed-sign rows with NaN, +inf, -inf (and both
+    infinities) and an all-NaN row; histogram_range on the column's first 16
+    partitions cut to 2050 rows (rows not 16-byte aligned) with NaN values,
+    values at and above the top edge, duplicate edges, an all-NaN partition
+    (its quantile edges are NaN), unsorted edges, infinite values and open
+    ends, at NB = 10 and at NB = 33 (the general instance)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    xm = (rng.normal(size=(16, 16384)) * 3 + 1.5).astype(np.float32)
+    xm[1, 7] = np.nan
+    xm[2, 9] = np.inf
+    xm[3, 11] = -np.inf
+    xm[4, 3], xm[4, 5] = np.inf, -np.inf
+    xm[5] = np.nan
+    cases = [moments_case(torch.from_numpy(xm).to(dev), "16x16384, mixed sign, NaN, +inf, "
+                          "-inf and both infinities, an all-NaN row")]
+
+    xs = np.array(data[:16, :2050], np.float64)
+    xs[0, ::13] = np.nan  # NaN values count nowhere (edges from the rest)
+    xs[1] = np.nan  # an all-NaN partition: NaN edges
+    xs[2] = np.round(xs[2] / 1e4)  # few distinct values: duplicate edges
+    xs[3, ::17], xs[3, 5::17] = np.inf, -np.inf
+    xs[5, ::11], xs[5, 3::11] = np.inf, -np.inf
+    for nb in (10, 33):
+        with np.errstate(invalid="ignore"):  # inf - inf between infinite quantiles
+            e = np.quantile(xs, np.linspace(0, 1, nb + 1), axis=1).T
+        e[0] = np.nanquantile(xs[0], np.linspace(0, 1, nb + 1))
+        e[4] = e[4, rng.permutation(nb + 1)]  # unsorted
+        e[5, 0], e[5, -1] = -np.inf, np.inf  # open ends
+        x = xs.copy()
+        x[6:, 1] = e[6:, -1]  # the last bucket is closed
+        x[6:, 2] = e[6:, -1] + 1  # above the top edge: nowhere
+        x32 = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+        e32 = torch.from_numpy(np.ascontiguousarray(e, np.float32)).to(dev)
+        cases.append(histogram_case(x32, e32, f"{xs.shape[0]}x{xs.shape[1]}, NB {nb}: NaN "
+                                    "values and edges, values at and above the top edge, "
+                                    "duplicate and unsorted edges, infinite values and ends"
+                                    + (", the general instance" if nb > 16 else "")))
+    return cases
+
+
 def kernel_cases(table, queries, held_out, dev) -> list[Case]:
     """The offline plane's kernels with the operands the main path hands
-    them: one numeric and one categorical column of the table, and the
-    first stacked chunk of each eval kernel in the workload's launch order
-    (and fused_eval at a planner chunk read of a held-out query);
+    them: one numeric and one categorical column of the table (and the
+    counting passes on its first 16 partitions alone, as a streaming delta
+    launches them, plus `ingest_stress`), the first stacked chunk of each
+    eval kernel in the workload's launch order (and fused_eval at a planner
+    chunk read of a held-out query);
     predicate_eval on the clauses of the workload query with the most of
     them, with the shared (C, G) map that `predicate_mask_device` passes
     and again with per-partition bounds and a (P, C, G) map."""
@@ -357,9 +447,13 @@ def kernel_cases(table, queries, held_out, dev) -> list[Case]:
         return (torch.aminmax(x, dim=1), torch.sum(x, dim=1), torch.sum(x * x, dim=1),
                 torch.aminmax(lx, dim=1), torch.sum(lx, dim=1), torch.sum(lx * lx, dim=1))
 
-    cases.append(Case("moments", moments.moments, moments.moments_plain, (x,), "close",
-                      p * r * 4 + p * 8 * 4, p * r * 10,
-                      ("torch.aminmax + torch.sum over x and log x", lib_moments), f"{p}x{r}"))
+    # the main path's shape, then its first 16 partitions alone: a streaming
+    # delta's launch, which must give the full launch's rows
+    cases.append(moments_case(x, f"{p}x{r}", record=True, library=(
+        "torch.aminmax + torch.sum over x and log x", lib_moments)))
+    head = x[:16].clone()
+    cases.append(moments_case(head, f"16x{r}, the first 16 partitions alone",
+                              check=same_rows("moments", moments.moments(x))))
 
     edges = np.quantile(data.astype(np.float64), np.linspace(0, 1, 11), axis=1).T
     e = torch.from_numpy(np.ascontiguousarray(edges, np.float32)).to(dev)
@@ -371,10 +465,12 @@ def kernel_cases(table, queries, held_out, dev) -> list[Case]:
         k = torch.where(x == e[:, -1:], nb - 1, k).clamp_(-1, nb)  # last bucket closed
         return torch.bincount((k + 1 + offs).view(-1), minlength=p * (nb + 2))
 
-    cases.append(Case("histogram_range", histogram.histogram_range,
-                      histogram.histogram_range_plain, (x, e), "bits",
-                      p * r * 4 + p * (2 * nb + 1) * 4, p * r * nb * 3,
-                      ("torch.searchsorted + torch.bincount", lib_hist), f"{p}x{r}"))
+    cases.append(histogram_case(x, e, f"{p}x{r}", record=True, library=(
+        "torch.searchsorted + torch.bincount", lib_hist)))
+    cases.append(histogram_case(head, e[:16].clone(), f"16x{r}, the first 16 partitions alone",
+                                check=same_rows("histogram_range",
+                                                histogram.histogram_range(x, e))))
+    cases += ingest_stress(data, dev, seed=len(cases))
 
     card = table.spec("l_partkey").cardinality
     codes = torch.from_numpy(np.ascontiguousarray(table.columns["l_partkey"])).to(dev)

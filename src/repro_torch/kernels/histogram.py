@@ -8,8 +8,9 @@
   codes outside ``[0, card)`` (-1 = padding) count nowhere.
 
 Counts are exact integers returned as f32 (exact below 2^24 rows).  On a
-CUDA tensor each wrapper launches its kernel in `csrc/ingest.cu`; on a
-CPU tensor it runs its plain version.
+CUDA tensor each wrapper launches its kernel in `csrc/ingest.cu` (for
+histogram_range, an instance compiled for B up to 16, the general kernel
+up to B = 4096); on a CPU tensor it runs its plain version.
 """
 from __future__ import annotations
 

@@ -11,10 +11,10 @@ histograms and their prefix sums must be bit-equal to the plain versions; f32 su
 reference's own tolerance (rtol 1e-5, atol 1e-4 — the summation order
 differs), pairwise distances at rtol 1e-4, atol 1e-3 with the same
 nearest centers, and every kernel must give the same bits on a second
-run (no float atomics); a group_aggregate or fused_eval launch over the
-first stack rows gives the bits a full launch gives them, and fused_eval
-with a predicate every row passes gives group_aggregate's bits (one
-shared aggregation).  The device GBDT fit on the card exports the
+run (no float atomics); a group_aggregate, fused_eval, moments or
+histogram_range launch over the first stack rows gives the bits a full
+launch gives them, and fused_eval with a predicate every row passes
+gives group_aggregate's bits (one shared aggregation).  The device GBDT fit on the card exports the
 host fit's forest bit for bit.  A stream of appends folded on the card
 equals a cold rebuild of the grown table bit for bit.
 """
@@ -234,18 +234,61 @@ def test_group_aggregate_slice_equals_full(cuda, radix):
     np.testing.assert_array_equal(_bits(got_part), _bits(got_full[:16]))
 
 
+def _offset(t):
+    """``t``'s values in a tensor whose base is 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def test_moments_slice_equals_full(cuda):
+    """A partition's statistics depend only on its row and R: the first 16
+    partitions alone give the bits the full launch gives them."""
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy((rng.normal(size=(40, 16384)) * 100 + 50).astype(np.float32)).to(cuda)
+    full = moments.moments(x)
+    part = moments.moments(x[:16].clone())
+    np.testing.assert_array_equal(_bits(part), _bits(full[:16]))
+
+
+@pytest.mark.parametrize("nb", [10, 33])
+def test_histogram_range_slice_equals_full(cuda, nb):
+    """300 partitions run one block each, 16 partitions a cluster of blocks
+    each: the counts are the same."""
+    rng = np.random.default_rng(nb)
+    x = rng.normal(size=(300, 4096)).astype(np.float32)
+    e = np.quantile(x.astype(np.float64), np.linspace(0, 1, nb + 1), axis=1).T
+    xt = torch.from_numpy(x).to(cuda)
+    et = torch.from_numpy(np.ascontiguousarray(e, np.float32)).to(cuda)
+    full = histogram.histogram_range(xt, et)
+    part = histogram.histogram_range(xt[:16].clone(), et[:16].clone())
+    assert torch.equal(part, full[:16])
+    assert torch.equal(full, histogram.histogram_range_plain(xt, et))
+
+
 @pytest.mark.parametrize("shape", [(1, 128), (3, 100), (4, 1024), (7, 2050), (2, 16384)])
-def test_moments_matches_plain(cuda, shape):
+@pytest.mark.parametrize("kind", ["normal", "nonfinite", "offset"])
+def test_moments_matches_plain(cuda, shape, kind):
     rng = np.random.default_rng(shape[1])
     x = (rng.normal(size=shape) * 3 + 1.5).astype(np.float32)
     if shape[0] > 1:
         x[0, 5] = np.nan  # NaN propagates into every statistic of its row
+    if kind == "nonfinite":  # mixed sign with ±inf, both infinities, an all-NaN row
+        x[-1, 3], x[-1, 4] = np.inf, -np.inf
+        if shape[0] > 2:
+            x[1, 2] = np.inf
+            x[2] = np.nan
     t = torch.from_numpy(x).to(cuda)
+    if kind == "offset":  # rows not 16-byte aligned: 4-byte loads, the same bits
+        aligned = moments.moments(t)
+        t = _offset(t)
     got = moments.moments(t)
     again = moments.moments(t)
     want = moments.moments_plain(t)
     g, w = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_array_equal(g, again.cpu().numpy())  # NaN-aware bit equality
+    if kind == "offset":
+        np.testing.assert_array_equal(_bits(got), _bits(aligned))
     exact = [0, 1, 4, 5]  # min/max of x and of log x
     np.testing.assert_array_equal(g[:, [0, 1]], w[:, [0, 1]])
     np.testing.assert_allclose(g[:, exact], w[:, exact], rtol=1e-6)  # logf vs torch.log: ulps
@@ -259,15 +302,49 @@ def test_moments_rejects_zero_rows(cuda):
 
 @pytest.mark.parametrize("shape", [(1, 128), (3, 100), (7, 2050), (4, 16384)])
 @pytest.mark.parametrize("nb", [4, 10, 33])
-def test_histogram_range_matches_plain(cuda, shape, nb):
+@pytest.mark.parametrize("edges", ["quantile", "duplicate", "unsorted", "nan", "inf", "offset"])
+def test_histogram_range_matches_plain(cuda, shape, nb, edges):
+    """Bit-equal to the plain version on quantile edges (the cumulative
+    path) and on edges that need the reference's test of each bucket:
+    duplicate, unsorted, NaN (an all-NaN partition), infinite values and
+    ends; and on a base 4 bytes past a 16-byte boundary."""
     rng = np.random.default_rng(1)
     x = rng.normal(size=shape).astype(np.float32)
-    edges = np.quantile(x.astype(np.float64), np.linspace(0, 1, nb + 1), axis=1).T
+    if edges == "duplicate":
+        x = np.round(x).astype(np.float32)
+    if edges == "nan":
+        x[0] = np.nan
+    if edges == "inf":
+        x[:, 3::17], x[:, 4::17] = np.inf, -np.inf
+    with np.errstate(invalid="ignore"):  # inf - inf between infinite quantiles
+        e = np.quantile(x.astype(np.float64), np.linspace(0, 1, nb + 1), axis=1).T
+    e = np.ascontiguousarray(e, np.float32)
+    if edges == "unsorted":
+        e = np.ascontiguousarray(e[:, rng.permutation(nb + 1)])
+    if edges == "inf":
+        e[0, 0], e[0, -1] = -np.inf, np.inf
     x[:, ::11] = np.nan
+    x[:, 1 % shape[1]] = e[:, -1]  # the last bucket is closed
+    x[:, 2 % shape[1]] = e[:, -1] + 1  # above the top edge: nowhere
     xt = torch.from_numpy(x).to(cuda)
-    et = torch.from_numpy(np.ascontiguousarray(edges, np.float32)).to(cuda)
+    et = torch.from_numpy(e).to(cuda)
+    if edges == "offset":
+        xt = _offset(xt)
     got = histogram.histogram_range(xt, et)
+    assert torch.equal(got, histogram.histogram_range(xt, et))
     assert torch.equal(got, histogram.histogram_range_plain(xt, et))
+
+
+@pytest.mark.parametrize("nb", [10, 33])
+def test_histogram_range_launches_at_every_nb(cuda, nb):
+    """NB = 10 runs an instance of its own, NB = 33 the general kernel:
+    both launch a kernel, counted once."""
+    x = torch.rand((4, 1000), device=cuda)
+    e = torch.sort(torch.rand((4, nb + 1), device=cuda), dim=1).values
+    _build.LAUNCHES.reset()
+    got = histogram.histogram_range(x, e)
+    assert _build.LAUNCHES.counts() == {("histogram_range",): 1}
+    assert torch.equal(got, histogram.histogram_range_plain(x, e))
 
 
 @pytest.mark.parametrize("shape", [(1, 128), (3, 100), (7, 2050), (4, 16384)])

@@ -34,12 +34,17 @@ def _port(op, *args):
 
 @pytest.mark.parametrize("lowering", LOWERINGS)
 @pytest.mark.parametrize("shape", SHAPES_PR)
-@pytest.mark.parametrize("sign", ["positive", "mixed"])
+@pytest.mark.parametrize("sign", ["positive", "mixed", "nonfinite"])
 def test_moments(lowering, shape, sign):
     rng = np.random.default_rng(shape[1])
     x = (rng.normal(size=shape) * 3 + 1.5).astype(np.float32)
     if sign == "positive":
         x = np.abs(x) + np.float32(0.1)  # log statistics live
+    if sign == "nonfinite":  # NaN in every statistic of its row; ±inf, and both
+        x[0, 5] = np.nan
+        x[1, 3] = np.inf
+        x[2, 4] = -np.inf
+        x[-1, 1], x[-1, 2] = np.inf, -np.inf
     got = _port("moments_op", x)
     want = _ref(lowering, "moments_op", x)
     np.testing.assert_array_equal(got[:, :2], want[:, :2])  # min/max exact
@@ -53,17 +58,39 @@ def test_moments_rejects_zero_rows():
 
 @pytest.mark.parametrize("lowering", LOWERINGS)
 @pytest.mark.parametrize("shape", SHAPES_PR)
-@pytest.mark.parametrize("nb", [4, 33])
-def test_histogram_range(lowering, shape, nb):
+@pytest.mark.parametrize("nb,edges", [
+    pytest.param(4, "quantile", id="4"),
+    pytest.param(33, "quantile", id="33"),
+    # the reference tests each bucket on its own, whatever the edges
+    pytest.param(10, "duplicate", id="10-duplicate-edges"),
+    pytest.param(10, "unsorted", id="10-unsorted-edges"),
+    pytest.param(10, "nan", id="10-nan-edges"),
+    pytest.param(10, "inf", id="10-inf-values"),
+])
+def test_histogram_range(lowering, shape, nb, edges):
     rng = np.random.default_rng(1)
     x = rng.normal(size=shape).astype(np.float32)
-    edges = np.quantile(x.astype(np.float64), np.linspace(0, 1, nb + 1), axis=1).T
-    edges = np.ascontiguousarray(edges, np.float32)
+    if edges == "duplicate":  # few distinct values: quantiles repeat
+        x = np.round(x).astype(np.float32)
+    if edges == "nan":
+        x[0] = np.nan  # an all-NaN partition has NaN quantiles
+    if edges == "inf":
+        x[:, 3::17] = np.inf
+        x[:, 4::17] = -np.inf
+    with np.errstate(invalid="ignore"):  # inf - inf between infinite quantiles
+        q = np.quantile(x.astype(np.float64), np.linspace(0, 1, nb + 1), axis=1).T
+    q = np.ascontiguousarray(q, np.float32)
+    if edges == "unsorted":
+        q = np.ascontiguousarray(q[:, rng.permutation(nb + 1)])
+    if edges == "nan":
+        q[1, nb // 2] = np.nan
+    if edges == "inf":  # open ends: ±inf values count in the end buckets
+        q[0, 0], q[0, -1] = -np.inf, np.inf
     x[:, ::13] = np.nan  # NaN counts nowhere
-    x[:, 1] = edges[:, -1]  # the last bucket is closed
-    x[:, 2] = edges[:, -1] + 1  # above the top edge: nowhere
-    got = _port("histogram_range_op", x, edges)
-    np.testing.assert_array_equal(got, _ref(lowering, "histogram_range_op", x, edges))
+    x[:, 1] = q[:, -1]  # the last bucket is closed
+    x[:, 2] = q[:, -1] + 1  # above the top edge: nowhere
+    got = _port("histogram_range_op", x, q)
+    np.testing.assert_array_equal(got, _ref(lowering, "histogram_range_op", x, q))
 
 
 @pytest.mark.parametrize("lowering", LOWERINGS)
