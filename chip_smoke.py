@@ -50,10 +50,28 @@ Phases, each fatal on failure:
    held-out executes on the grown table, ``predicate_mask_device`` against
    the host mask for every held-out query, and a cold rebuild of sketches
    and answers that the folded ones must equal bit for bit;
-8. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
-   Each kernel's ``session_launches`` and ``stream_launches`` count its
-   launches in the Session path and in the streaming path, and
-   ``launches`` is their sum.
+8. the serving path on the same Session over the grown table:
+   ``[batch]`` a ``BatchPicker`` over the Session's picker
+   answers the held-out queries at a 5% budget, cold and warm (selections
+   equal to the single-query ``pick``, no new KMeans key on the warm
+   pass); ``[faults]`` a second route on ``ExecOptions(faults=GATE)``, its
+   own ``Session(table)``, executes them at the 5% bound (coverage ≥ 0.9
+   with failed reads, ``degraded`` reported exactly, no launch key beyond
+   the fault-free executes'); ``[serve]`` a ``FrontDoor`` on a
+   ``VirtualClock`` over a route whose every read fails and the card
+   Session (every ticket resolves, fault-free answers bit-equal to direct
+   executes, the breaker opens, a burst sheds only at the top of the
+   brownout ladder, no new launch key), then the ``start()`` pump thread
+   on new queries from two submitter threads; ``[relaxed]`` phase 6's
+   trees refitted with ``parity_relaxation`` on the card, within the
+   reference's tolerances of the host forest;
+9. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
+   Each kernel's ``session_launches``, ``stream_launches`` and
+   ``serve_launches`` count its launches in the Session, streaming and
+   serving paths, and ``launches`` is their sum.
+
+The whole run takes about 11 minutes (650 s on an H100 80GB HBM3 at a
+700 W power limit), phase 8 about 200 s of it.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -1010,10 +1028,11 @@ def session_path(table, args) -> tuple:
     return sess, launches, walls, planned, held_out
 
 
-def check_forest(sess, table, args) -> None:
+def check_forest(sess, table, args) -> dict:
     """Phase 6: the first trees of funnel model 0, fitted again from the
     training features on the card and on the host; bit-equal to each other
-    and to the trained forest's first trees."""
+    and to the trained forest's first trees.  → the fit's inputs and the
+    host forest, for the serving phase's relaxed fit."""
     import numpy as np
 
     from repro_torch.backends import ExecOptions
@@ -1051,6 +1070,7 @@ def check_forest(sess, table, args) -> None:
           f"bit-equal, and equal to the trained model's; {time.perf_counter() - t:.2f} s",
           flush=True)
     run_kernel_phase(session_tree_hist_cases(codes, trained, args.seed), every_kernel=False)
+    return dict(x=x, y=y, kw=kw, host=host, host_s=t_host)
 
 
 def report_answers(sess, table, planned, walls, held_out, args) -> None:
@@ -1270,6 +1290,336 @@ def stream_path(sess, train_queries, held_out, args) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 8: the serving path on the prepared Session
+# --------------------------------------------------------------------------
+SERVE_KERNELS = ("fused_eval", "pdist_sq", "tree_hist", "cumsum_seq", "moments",
+                 "histogram_range", "bincount")
+# the reference's coverage-gate policy (`tests/test_faults.py`): 5% of read
+# attempts fail transiently, 2% time out, 5% straggle, 1.25% of partitions
+# lose every replica
+GATE = dict(seed=20240807, dead_frac=0.0125, fail_frac=0.05, timeout_frac=0.02,
+            straggler_frac=0.05)
+RELAXED_RTOL = dict(leaf=(1e-4, 1e-5), pred=(1e-4, 1e-4))  # `tests/test_gbdt_device.py`
+
+
+def grafted_session(sess, options):
+    """A Session over ``sess``'s table on ``options`` with ``sess``'s trained
+    picker, as `benchmarks/bench_serving_load._grafted_session` grafts one:
+    its own sketch store, answer store and planner."""
+    from repro_torch.api import Session
+    from repro_torch.planner import QueryPlanner
+
+    route = Session(sess.table, options=options)
+    route.picker = sess.picker
+    route.planner = QueryPlanner(route.picker, route.answers, views=route.views,
+                                 config=route.planner_config)
+    route._fb_version = sess.table.version
+    return route
+
+
+def batch_phase(sess, held_out, truth) -> None:
+    """`[batch]`: BatchPicker over the Session's picker at a 5% budget."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import clustering
+    from repro_torch.serving import BatchPicker
+
+    budget = max(1, int(ERROR_BOUND * sess.table.num_partitions))
+    bp = BatchPicker(sess.picker)
+    t = time.perf_counter()
+    cold = bp.answer_batch(held_out, budget)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t
+    keys = set(clustering.trace_counts())
+    stats = bp.serve_stats()
+    t = time.perf_counter()
+    warm = bp.answer_batch(held_out, budget)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t
+    if set(clustering.trace_counts()) != keys:
+        raise AssertionError("the warm BatchPicker pass ran a new KMeans shape key")
+    for q, (est, sel), (west, wsel), exact in zip(held_out, cold, warm, truth, strict=True):
+        single = sess.picker.pick(q, budget)
+        for got in (sel, wsel):
+            np.testing.assert_array_equal(got.ids, single.ids)
+            np.testing.assert_array_equal(got.weights, single.weights)
+        np.testing.assert_array_equal(est, west)
+        np.testing.assert_allclose(est, exact.estimate(sel.ids, sel.weights), rtol=SUM_RTOL,
+                                   atol=1e-6, equal_nan=True)
+    warm_stats = bp.serve_stats()
+    print(f"[batch] BatchPicker.answer_batch of {len(held_out)} held-out queries at budget "
+          f"{budget} of {sess.table.num_partitions}: cold {t_cold:.2f} s ({stats['answer_misses']} "
+          f"misses in one stacked pass), warm {t_warm:.2f} s; {warm_stats['picks_per_sec']:.2f} "
+          f"picks/s over {warm_stats['picks']} picks; KMeans census {stats['shape_buckets']} "
+          f"shape keys after the cold pass, {warm_stats['shape_buckets']} after the warm one "
+          f"({json.dumps(warm_stats['bucket_traces'], sort_keys=True)})", flush=True)
+    print(f"[check] batch: every selection equals the picker's single-query pick (ids and "
+          f"weights), warm estimates bit-equal to cold, estimates within {SUM_RTOL} of the "
+          f"Session's exact answers; the warm pass ran no new KMeans key", flush=True)
+
+
+def faults_phase(sess, held_out, truth) -> None:
+    """`[faults]`: a grafted route on ``ExecOptions(faults=GATE)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import QuerySpec
+    from repro_torch.faults import FaultPolicy
+    from repro_torch.planner import QueryPlanner
+    from repro_torch.queries import device
+    from repro_torch.queries.engine import AnswerStore
+
+    # fault-free executes on a fresh answer store: the launch keys to hold
+    clean = QueryPlanner(sess.picker, AnswerStore(sess.table, options=sess.options),
+                         config=sess.planner_config)
+    device.TRACES.reset()
+    for q in held_out:
+        clean.answer(q, error_bound=ERROR_BOUND)
+    torch.cuda.synchronize()
+    clean_keys = set(device.TRACES.counts())
+    t = time.perf_counter()
+    route = grafted_session(sess, sess.options.replace(faults=FaultPolicy(**GATE)))
+    torch.cuda.synchronize()
+    t_route = time.perf_counter() - t
+    device.TRACES.reset()
+    planned, walls = [], []
+    for q in held_out:
+        t = time.perf_counter()
+        planned.append(route.execute(QuerySpec(q, error_bound=ERROR_BOUND)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    keys = set(device.TRACES.counts())
+    rel = np.array([m["avg_rel_err"] for m in planned_errors(planned, truth)])
+    coverage = float((rel <= ERROR_BOUND).mean())
+    failed = [a.plan.partitions_failed for a in planned]
+    stats = route.stats()
+    for a in planned:
+        if a.plan.partitions_failed and not a.plan.degraded:
+            raise AssertionError("an answer with failed reads was not reported degraded")
+        if len(a.plan.failed_ids) != a.plan.partitions_failed:
+            raise AssertionError("failed_ids and partitions_failed disagree")
+    if stats["degraded_answers"] != sum(a.plan.degraded for a in planned) or \
+            stats["partitions_failed"] != sum(failed):
+        raise AssertionError(f"session fault counters disagree with the answers: {stats}")
+    if sum(failed) == 0:
+        raise AssertionError("GATE injected no permanent failure")
+    if coverage < 0.9:
+        raise AssertionError(f"coverage {coverage} under GATE, below 0.9")
+    if not keys <= clean_keys:
+        raise AssertionError(f"faulted reads launched new keys {sorted(keys - clean_keys)}")
+    read = np.array([a.partitions_read for a in planned], np.float64)
+    print(f"[faults] route on FaultPolicy{json.dumps(GATE)}: Session(table) {t_route:.2f} s "
+          f"(its sketch store); {len(held_out)} executes at error_bound {ERROR_BOUND}: p50 "
+          f"{np.median(walls):.3f} s; partitions read mean {read.mean():.1f}; partitions failed "
+          f"{sum(failed)} over {sum(1 for f in failed if f)} answers; degraded "
+          f"{stats['degraded_answers']} of {len(planned)}; coverage {coverage:.4f}; mean "
+          f"avg_rel_err {rel.mean():.4f}", flush=True)
+    print(f"[faults] fault report {json.dumps(stats['fault_report'], sort_keys=True)}",
+          flush=True)
+    print(f"[check] faults: coverage {coverage:.4f} >= 0.9 with {sum(failed)} failed reads, "
+          f"degraded reported exactly; eval launch keys {len(keys)}, within the fault-free "
+          f"executes' {len(clean_keys)}", flush=True)
+
+
+def serve_phase(sess, held_out, fresh) -> None:
+    """`[serve]`: a FrontDoor on a VirtualClock over a dead route and the
+    card Session, then the real-clock pump thread on ``fresh`` queries
+    (no cached answer: their chunk reads launch the eval kernels)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import QuerySpec
+    from repro_torch.errors import OverloadError
+    from repro_torch.faults import FaultPolicy, VirtualClock
+    from repro_torch.kernels import _build
+    from repro_torch.serving import FrontDoor, FrontDoorConfig
+
+    specs = [QuerySpec(q, error_bound=ERROR_BOUND) for q in held_out]
+    # the service model, from warm executes (`bench_serving_load._calibrate`)
+    for spec in specs:
+        sess.execute(spec)
+    walls, parts = [], []
+    for spec in specs:
+        t = time.perf_counter()
+        ans = sess.execute(spec)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        parts.append(max(1, ans.partitions_read))
+    beta = float(np.median(np.asarray(walls) / np.asarray(parts)))
+    alpha = max(1e-4, 0.25 * float(np.min(walls)))
+    dead = grafted_session(sess, sess.options.replace(
+        faults=FaultPolicy(seed=GATE["seed"], dead_frac=1.0, max_attempts=1)))
+    clk = VirtualClock()
+    door = FrontDoor(sess, routes=[("faulty", dead), ("card", sess)], clock=clk,
+                     service_model=lambda p: alpha + beta * p,
+                     config=FrontDoorConfig(max_queue=16, batch_cap=4, tenant_queue_cap=16,
+                                            tenant_slots=4, tenant_rate=1e9, tenant_burst=1e9))
+    tickets = []
+    t = time.perf_counter()
+    for _ in range(2):  # two tenants, two passes, one request each in flight
+        for spec in specs:
+            tickets += [(spec, door.submit(spec, tenant=f"tenant{k}")) for k in range(2)]
+            door.run_until_idle()
+    t_loop = time.perf_counter() - t
+    loop_ticks = door.ticks
+    if not all(tk.done() and tk.error is None for _, tk in tickets):
+        raise AssertionError("a closed-loop ticket did not resolve to an answer")
+    if door.breakers["faulty"].trips < 1:
+        raise AssertionError("the breaker never opened on the faulty route")
+    clean = [(spec, tk) for spec, tk in tickets
+             if tk.degrade_level == 0 and tk.answer.plan.partitions_failed == 0]
+    for spec, tk in clean:
+        direct = sess.execute(spec)
+        np.testing.assert_array_equal(tk.answer.group_keys, direct.group_keys)
+        np.testing.assert_array_equal(np.ascontiguousarray(tk.answer.estimate).view(np.uint64),
+                                      np.ascontiguousarray(direct.estimate).view(np.uint64))
+    loop = door.serve_stats()
+    # an overload burst: more than the global queue holds, all at once
+    burst, refused = [], []
+    for i in range(24):
+        try:
+            burst.append(door.submit(specs[i % len(specs)], tenant=f"tenant{i % 2}"))
+        except OverloadError as e:
+            refused.append(e.reason)
+            if door.level != door.config.brownout_levels:
+                raise AssertionError("shed before the brownout ladder reached its top")
+    t = time.perf_counter()
+    door.run_until_idle()
+    t_burst = time.perf_counter() - t
+    st = door.serve_stats()
+    if not refused or st["sheds"] != st["sheds_at_max_level"] or \
+            st["first_degrade_tick"] > st["first_shed_tick"]:
+        raise AssertionError(f"the burst did not degrade before shedding: {st}")
+    if not all(tk.done() for tk in burst):
+        raise AssertionError("a burst ticket did not resolve")
+    if st["eval_compiles"] or st["serve_compiles"]:
+        raise AssertionError(f"the door's traffic ran new launch keys: {st}")
+    adm = sum(v["admitted"] for v in st["tenants"].values())
+    deg = sum(v["degraded"] for v in st["tenants"].values())
+    lat = loop["latency"]
+    print(f"[serve] FrontDoor on a VirtualClock, service model {alpha:.4f} s + {beta:.6f} s x "
+          f"partitions read (warm executes), routes faulty (dead_frac 1.0) then card: "
+          f"{len(tickets)} closed-loop requests (2 tenants x 2 passes x {len(specs)}) over "
+          f"{loop_ticks} flushes, host wall {t_loop / max(loop_ticks, 1):.3f} s per flush; "
+          f"virtual latency p50 {lat['p50']:.4f} s, p99 {lat['p99']:.4f} s (virtual seconds); "
+          f"{len(clean)} fault-free answers bit-equal to direct executes; breaker "
+          f"{json.dumps(st['breakers'], sort_keys=True)}", flush=True)
+    print(f"[serve] burst of 24: {len(burst)} admitted, {len(refused)} shed "
+          f"({sorted(set(refused))}), drained in {t_burst:.2f} s host wall over "
+          f"{st['ticks'] - loop_ticks} flushes; first degrade at flush {st['first_degrade_tick']}, "
+          f"first shed at {st['first_shed_tick']}; totals admitted {adm}, degraded {deg}, shed "
+          f"{st['sheds']}; virtual p50 {st['latency']['p50']:.4f} s p99 "
+          f"{st['latency']['p99']:.4f} s; eval_compiles {st['eval_compiles']}, serve_compiles "
+          f"{st['serve_compiles']}; healthz {json.dumps(door.healthz(), sort_keys=True)}",
+          flush=True)
+
+    # the real-clock pump: the kernels launch from its thread
+    pump = FrontDoor(sess, config=FrontDoorConfig(tenant_rate=1e9, tenant_burst=1e9))
+    fresh = [QuerySpec(q, error_bound=ERROR_BOUND) for q in fresh]
+    results, errors = {}, []
+
+    def client(k):
+        try:
+            for i in range(k, len(fresh), 2):
+                results[i] = pump.submit(fresh[i], tenant=f"thread{k}").result(timeout=600)
+        except Exception as e:  # the phase fails below
+            errors.append(e)
+
+    def eval_launches():
+        counts = _build.LAUNCHES.counts()
+        return counts.get(("fused_eval",), 0) + counts.get(("group_aggregate",), 0)
+
+    before = eval_launches()
+    t = time.perf_counter()
+    pump.start(interval=0.001)
+    try:
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+    finally:
+        pump.stop()
+    torch.cuda.synchronize()
+    launched = eval_launches() - before
+    if errors or sorted(results) != list(range(len(fresh))) or any(th.is_alive()
+                                                                    for th in threads):
+        raise AssertionError(f"the pump did not resolve every ticket: {errors}")
+    if launched == 0:
+        raise AssertionError("the pump thread launched no eval kernel")
+    print(f"[serve] pump thread: {len(fresh)} new queries at error_bound {ERROR_BOUND} from 2 "
+          f"submitter threads resolved in {time.perf_counter() - t:.2f} s; fused_eval and "
+          f"group_aggregate launched {launched} times from the pump thread", flush=True)
+    print(f"[check] serve: every ticket resolved; fault-free answers bit-equal to direct "
+          f"executes; the breaker opened on the faulty route; shed only at brownout level "
+          f"{door.config.brownout_levels}; no new eval or KMeans key", flush=True)
+
+
+def relaxed_phase(sess, fit) -> None:
+    """`[relaxed]`: phase 6's first trees fitted with ``parity_relaxation``
+    on the card, held to the host forest at the reference's tolerances."""
+    import numpy as np
+    import torch
+
+    from repro_torch.backends import ExecOptions
+    from repro_torch.core.gbdt import fit_gbdt
+
+    x, y, kw, host = fit["x"], fit["y"], fit["kw"], fit["host"]
+    t = time.perf_counter()
+    default = fit_gbdt(x, y, options=ExecOptions(), **kw)
+    torch.cuda.synchronize()
+    t_default = time.perf_counter() - t
+    t = time.perf_counter()
+    relaxed = fit_gbdt(x, y, options=ExecOptions(), parity_relaxation=True, **kw)
+    torch.cuda.synchronize()
+    t_relaxed = time.perf_counter() - t
+    np.testing.assert_array_equal(default.leaf.view(np.uint32), host.leaf.view(np.uint32))
+    np.testing.assert_array_equal(relaxed.feat, host.feat)
+    np.testing.assert_array_equal(relaxed.thr, host.thr)
+    rtol, atol = RELAXED_RTOL["leaf"]
+    np.testing.assert_allclose(relaxed.leaf, host.leaf, rtol=rtol, atol=atol)
+    codes = host.binner.transform(x)
+    p_relaxed, p_host = relaxed.predict_codes(codes), host.predict_codes(codes)
+    rtol, atol = RELAXED_RTOL["pred"]
+    np.testing.assert_allclose(p_relaxed, p_host, rtol=rtol, atol=atol)
+    same = bool(np.array_equal(relaxed.leaf.view(np.uint32), host.leaf.view(np.uint32)))
+    print(f"[relaxed] the first {FOREST_CHECK_TREES} trees of funnel model 0 on "
+          f"{x.shape[0]}x{x.shape[1]}: parity_relaxation fit {t_relaxed:.2f} s vs default device "
+          f"fit {t_default:.2f} s (host fit {fit['host_s']:.2f} s in phase 6); feat and thr "
+          f"equal, leaves max abs diff {float(np.abs(relaxed.leaf - host.leaf).max()):.3g} "
+          f"(bit-equal: {same}), predictions max abs diff "
+          f"{float(np.abs(p_relaxed - p_host).max()):.3g}", flush=True)
+    print(f"[check] relaxed: within leaves rtol {RELAXED_RTOL['leaf'][0]:g} atol "
+          f"{RELAXED_RTOL['leaf'][1]:g} and predictions rtol {RELAXED_RTOL['pred'][0]:g} atol "
+          f"{RELAXED_RTOL['pred'][1]:g} of the host forest", flush=True)
+
+
+def serve_path(sess, held_out, fit, args) -> dict:
+    """Phase 8 on the grown table → its launches."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.queries.generator import WorkloadSpec
+
+    truth = sess.answers.get_batch(held_out)
+    fresh = WorkloadSpec(sess.table, seed=args.seed + 2).sample_workload(4)
+    _build.LAUNCHES.reset()
+    t = time.perf_counter()
+    batch_phase(sess, held_out, truth)
+    faults_phase(sess, held_out, truth)
+    serve_phase(sess, held_out, fresh)
+    relaxed_phase(sess, fit)
+    torch.cuda.synchronize()
+    launches = launches_of(SERVE_KERNELS)
+    print(f"[serve] the serving phase took {time.perf_counter() - t:.2f} s; launches "
+          f"{json.dumps(launches, sort_keys=True)}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import numpy as np
@@ -1330,13 +1680,16 @@ def main(argv=None) -> int:
     sess, launches, walls, planned, held_out = session_path(table, args)
     report_answers(sess, table, planned, walls, held_out, args)
 
-    check_forest(sess, table, args)
+    fit = check_forest(sess, table, args)
 
     stream = stream_path(sess, queries, held_out, args)
+    serve = serve_path(sess, held_out, fit, args)
     for name, rec in records.items():
         rec["session_launches"] = launches.get(name, 0)
         rec["stream_launches"] = stream.get(name, 0)
-        rec["launches"] = rec["session_launches"] + rec["stream_launches"]
+        rec["serve_launches"] = serve.get(name, 0)
+        rec["launches"] = (rec["session_launches"] + rec["stream_launches"]
+                           + rec["serve_launches"])
 
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(f"[card] {card}", flush=True)

@@ -29,9 +29,16 @@ only the new partitions, but each cached answer's merge copies its
 (P, groups) raw tensor and the categorical heavy hitters are recomputed
 over (P, cardinality) counts, so a fold still grows with the table.
 
+Robustness and serving: ``ExecOptions(faults=FaultPolicy(...))`` runs
+every partition read through a seeded injector (degraded answers report
+``plan.partitions_failed``; exact reads raise `PartitionReadError`), and
+`repro_torch.serving.FrontDoor` admits concurrent multi-tenant requests
+in front of one or more prepared Sessions (a `VirtualClock` makes it
+deterministic).  On the CPU, pass ``ExecOptions(device="cpu")`` (or
+``backend="host"``); the default runs on the card or raises.
+
 Not ported yet: the partition lifecycle (`delete_partitions`, `compact`,
-`rebalance`), the WAL (`save`, `restore`) and fault injection
-(`FaultPolicy`).
+`rebalance`) and the WAL (`save`, `restore`).
 """
 from __future__ import annotations
 
@@ -43,11 +50,15 @@ from repro_torch.core.features import FeatureBuilder
 from repro_torch.errors import (  # noqa: F401  (re-export)
     BudgetExhaustedError,
     DeadlineExceededError,
+    InjectedCrash,
     InvalidQueryError,
+    OverloadError,
+    PartitionReadError,
     ReproError,
     SessionStateError,
     StaleStateError,
 )
+from repro_torch.faults import FaultPolicy, VirtualClock  # noqa: F401  (re-export)
 from repro_torch.core.picker import PickerConfig, train_picker
 from repro_torch.core.sketches import SketchStore
 from repro_torch.data.table import Table
@@ -62,7 +73,11 @@ __all__ = [
     "Clause",
     "DeadlineExceededError",
     "ExecOptions",
+    "FaultPolicy",
+    "InjectedCrash",
     "InvalidQueryError",
+    "OverloadError",
+    "PartitionReadError",
     "Predicate",
     "Query",
     "QuerySpec",
@@ -70,6 +85,7 @@ __all__ = [
     "Session",
     "SessionStateError",
     "StaleStateError",
+    "VirtualClock",
 ]
 
 
@@ -81,8 +97,8 @@ class QuerySpec:
     error_bound: float | None = None  # relative error the answer must meet
     latency_bound: float | None = None  # seconds (→ budget via read-rate EMA)
     budget: int | None = None  # fixed partition count (legacy contract)
-    strict: bool = False  # raise BudgetExhaustedError instead of returning
-    # an answer that misses the bound
+    strict: bool = False  # raise (BudgetExhaustedError / PartitionReadError)
+    # instead of returning a degraded answer
 
     def __post_init__(self):
         given = [
@@ -156,6 +172,7 @@ class Session:
         self._rates: dict[tuple[str, int], float] = {}
         self._executed = 0
         self._degraded = 0  # answers returned with plan.degraded
+        self._partitions_failed = 0  # failed reads surfaced in answers
 
     # ---- one-time preparation ---------------------------------------------
     def prepare(
@@ -258,6 +275,7 @@ class Session:
         self._executed += 1
         if ans.plan.degraded:
             self._degraded += 1
+            self._partitions_failed += ans.plan.partitions_failed
         return ans
 
     def execute_batch(self, specs: list[QuerySpec | Query]) -> list[PlannedAnswer]:
@@ -267,10 +285,10 @@ class Session:
     def stats(self) -> dict:
         """Counters of the session's parts.  Unlike the reference there are
         no keys for what the port lacks yet: ``num_live`` and the stack
-        rewrites (lifecycle), ``partitions_failed`` and ``fault_report``
-        (faults).  The answer store's append counters carry the names the
-        reference's serving stats give them."""
+        rewrites (lifecycle).  The answer store's append counters carry the
+        names the reference's serving stats give them."""
         planner = self.planner
+        injector = None if planner is None else planner.injector
         return {
             "executed": self._executed,
             "answer_hits": self.answers.hits,
@@ -289,4 +307,6 @@ class Session:
             "answers_carried": self.answers.carried,
             "answer_delta_evals": self.answers.delta_evals,
             "degraded_answers": self._degraded,
+            "partitions_failed": self._partitions_failed,
+            "fault_report": None if injector is None else injector.report(),
         }

@@ -29,13 +29,30 @@ class ExecOptions:
     Fields:
       * ``backend`` — ``"host"`` (numpy) or ``"device"`` (torch kernels);
       * ``device``  — the torch device of the device backend, ``"cuda"``
-        by default (``"cuda:1"``, ``"cpu"``, ... also work).
+        by default (``"cuda:1"``, ``"cpu"``, ... also work);
+      * ``parity_relaxation`` — opt-in allclose-not-bitwise device fast
+        paths.  Default False keeps the bit-parity contract: every device
+        result is byte-identical to host numpy.  True lets the GBDT
+        boosting update stay on the device across trees (one transfer in
+        and one out per fit; ``pred + lr·leaf`` is no longer the host's
+        two roundings, and on the CPU the histograms are blocked one-hot
+        matmuls) — the forest is allclose to the host fit, not bitwise
+        equal;
+      * ``faults`` — a `repro_torch.faults.FaultPolicy` (or None, the
+        default: fault-free).  When set, the fault-aware read paths (the
+        planner's chunk reads, `AnswerStore`'s exact reads) run each
+        partition read through a deterministic seeded injector with
+        retry, backoff and hedging; irrecoverable reads degrade the
+        answer (planner) or raise `errors.PartitionReadError` (exact
+        paths).
 
-    Frozen: derive variants with `replace`.
+    Frozen and hashable: derive variants with `replace`.
     """
 
     backend: str = "device"
     device: str = "cuda"
+    parity_relaxation: bool = False
+    faults: object = None  # repro_torch.faults.FaultPolicy | None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

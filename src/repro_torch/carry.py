@@ -104,3 +104,21 @@ def picker(ref, port_table, port_fb, *, options=None):
                           for k in PickerConfig.__dataclass_fields__})
     return PS3Picker(port_table, port_fb, funnel(ref.funnel), _copy(ref.cluster_mask), cfg,
                      options=options)
+
+
+def fault_policy(ref):
+    """A port `FaultPolicy` with the reference policy's fields (the same
+    seed, rates, virtual-time model, retry policy and crash points)."""
+    import dataclasses
+
+    from repro_torch.faults import FaultPolicy
+
+    return FaultPolicy(**{f.name: getattr(ref, f.name) for f in dataclasses.fields(FaultPolicy)})
+
+
+def lss(ref, port_fb):
+    """A port `LSSSampler` over ``port_fb`` with the reference sampler's
+    model (forest) and strata count."""
+    from repro_torch.core.baselines import LSSSampler
+
+    return LSSSampler(port_fb, forest(ref.model), int(ref.num_strata))

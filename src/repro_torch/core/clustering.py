@@ -56,6 +56,11 @@ def trace_counts() -> dict:
     return TRACES.counts()
 
 
+def total_traces() -> int:
+    """Runs over every key since the last reset."""
+    return TRACES.total()
+
+
 def reset_trace_counts() -> None:
     TRACES.reset()
 

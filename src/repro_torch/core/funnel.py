@@ -118,10 +118,13 @@ def train_funnel(
     colsample: float = 0.7,
     *,
     options: ExecOptions | None = None,
+    parity_relaxation: bool = False,
 ) -> ImportanceFunnel:
     """k regressors on Algorithm-4 labels; ``options`` selects the GBDT fit
     execution backend (host numpy vs kernel layer) — the exported forests
-    are bit-identical either way, so calibration (τ) is backend-free."""
+    are bit-identical either way, so calibration (τ) is backend-free.
+    ``parity_relaxation`` opts the device fit into the device-resident
+    boosting update (allclose forests, see `core/gbdt.py`)."""
     thresholds = pick_thresholds(contributions, num_models)
     X = np.concatenate(features, axis=0)
     with record_function("funnel.binning"):
@@ -149,6 +152,7 @@ def train_funnel(
                 colsample=colsample,
                 codes=codes,
                 options=options,
+                parity_relaxation=parity_relaxation,
             )
         pred = forest.predict_codes(codes)  # calibrate on the shared codes
         frac = max(P.mean(), 1.0 / max(len(P), 1))

@@ -30,8 +30,16 @@ the CPU and on the card alike.
 
 Fixed-depth complete trees keep both paths branch-free; unused subtrees are
 padded (gain −inf splits are frozen into "always left" with value-copying
-leaves).  The reference's ``parity_relaxation`` fit (device-resident
-boosting, allclose only) is not ported yet.
+leaves).
+
+**``parity_relaxation``** (`ExecOptions.parity_relaxation`, device
+backend only) keeps y, w and the running prediction on the device for
+the whole forest: gradients and the boosting update ``pred + lr·leaf``
+run there, with one transfer in and one out per fit instead of per tree.
+On the card the levels still launch the tree_hist and cumsum_seq
+kernels; on the CPU the histograms become blocked one-hot matmuls
+(`kernels/tree_hist.tree_hist_matmul`).  The forest is allclose to the
+host fit, not bitwise equal.
 """
 from __future__ import annotations
 
@@ -260,14 +268,16 @@ def _fit_host(codes, y, w, pred, plan, feats, thrs, leaves, *, depth, lr, lam, m
 # --------------------------------------------------------------------------
 # device backend (torch: kernel histograms + eager split search)
 # --------------------------------------------------------------------------
-def _tree_levels(codes_t, rows, fs, g, h, lam, mcw, *, depth):
+def _tree_levels(codes_t, rows, fs, g, h, lam, mcw, *, depth, relaxed=False):
     """Level-wise split search + leaf values for one boosting tree.
 
     codes_t (F, Npad) int32 resident bin codes, feature-major; rows (ntp,)
     int64 sampled row ids (-1 = pad, dropped from every reduction); fs
     (fc,) int32 sampled feature ids; g/h (ntp,) f32 aligned with `rows`;
     lam/mcw 0-dim f32.  Every f32 step is one eager op, so each rounds as
-    numpy's does.  → (feats, thrs, leaf values, leaf index of every row).
+    numpy's does.  ``relaxed`` takes the histograms' relaxed plain version
+    on the CPU (`tree_hist`).  → (feats, thrs, leaf values, leaf index of
+    every row).
     """
     n_feat, npad = codes_t.shape
     dev = codes_t.device
@@ -283,7 +293,8 @@ def _tree_levels(codes_t, rows, fs, g, h, lam, mcw, *, depth):
     slot = torch.arange(nmax, device=dev)
     for lvl in range(depth):
         node_m = torch.where(valid, node, -1).to(torch.int32)
-        GH = tree_hist(codes_sub.T, fs, node_m, g, h, nmax, n_feat, NUM_BINS)
+        GH = tree_hist(codes_sub.T, fs, node_m, g, h, nmax, n_feat, NUM_BINS,
+                       relaxed=relaxed)
         GHL = cumsum_seq(GH)  # (2, nmax, F, B) left-fold prefix sums
         GL, HL = GHL[0], GHL[1]
         Gt = GL[..., -1:]
@@ -314,7 +325,7 @@ def _tree_levels(codes_t, rows, fs, g, h, lam, mcw, *, depth):
     leaf_node = torch.where(valid, node, -1).to(torch.int32)
     zero_col = torch.zeros((rows.shape[0], 1), dtype=torch.int32, device=dev)
     GHs = tree_hist(zero_col, torch.zeros(1, dtype=torch.int32, device=dev), leaf_node,
-                    g, h, 2**depth, 1, 1)[:, :, 0, 0]
+                    g, h, 2**depth, 1, 1, relaxed=relaxed)[:, :, 0, 0]
     lv = -GHs[0] / (GHs[1] + lam)
 
     full = torch.zeros(npad, dtype=torch.int64, device=dev)
@@ -326,7 +337,33 @@ def _tree_levels(codes_t, rows, fs, g, h, lam, mcw, *, depth):
     return feats[:n_int], thrs[:n_int], lv, full
 
 
-def _fit_device(codes, y, w, pred, plan, feats, thrs, leaves, *, depth, lr, lam, mcw, device):
+def _plan_tensors(rows, fs, dev):
+    """One tree's sampled rows, padded to their bucket with -1, and its
+    sampled features, on ``dev``."""
+    rows_p = np.full(_bucket(rows.shape[0]), -1, np.int64)
+    rows_p[: rows.shape[0]] = rows
+    return (torch.from_numpy(rows_p).to(dev),
+            torch.from_numpy(fs.astype(np.int32)).to(dev))
+
+
+def _fit_tree_resident(codes_t, rows, fs, y, w, pred, lam, mcw, lr, *, depth):
+    """`parity_relaxation` tree: gradients AND the boosting update stay on
+    the device.  ``pred + lr·leaf`` rounds on the device and the CPU
+    histograms are tiled, so the fit is allclose to the host forest, NOT
+    bitwise equal.  → (feats, thrs, leaf values, the updated pred)."""
+    valid = rows >= 0
+    rix = torch.clamp_min(rows, 0)
+    gfull = w * (pred - y)
+    zero = torch.zeros((), dtype=torch.float32, device=pred.device)
+    g = torch.where(valid, gfull[rix], zero)
+    h = torch.where(valid, w[rix], zero)
+    feats, thrs, lv, full = _tree_levels(codes_t, rows, fs, g, h, lam, mcw, depth=depth,
+                                         relaxed=True)
+    return feats, thrs, lv, pred + lr * lv[full]
+
+
+def _fit_device(codes, y, w, pred, plan, feats, thrs, leaves, *, depth, lr, lam, mcw, device,
+                parity_relaxation=False):
     n, n_feat = codes.shape
     npad = _bucket(n)
     dev = ExecOptions(device=str(device)).torch_device()
@@ -336,13 +373,29 @@ def _fit_device(codes, y, w, pred, plan, feats, thrs, leaves, *, depth, lr, lam,
     lam_d = torch.tensor(lam, dtype=torch.float32, device=dev)
     mcw_d = torch.tensor(mcw, dtype=torch.float32, device=dev)
     lr32 = np.float32(lr)
+    if parity_relaxation:
+        # device-resident boosting: y/w/pred live on the device for the
+        # whole forest and the trees are read back once, after the last
+        def padded(a):
+            return torch.from_numpy(np.pad(a.astype(np.float32), (0, npad - n))).to(dev)
+
+        y_d, w_d, pred_d = padded(y), padded(w), padded(pred)
+        lr_d = torch.tensor(lr32, device=dev)
+        trees = []
+        for rows, fs in plan:
+            TRACES.note("fit_tree_res", npad, n_feat, _bucket(rows.shape[0]), fs.shape[0], depth)
+            *tree, pred_d = _fit_tree_resident(codes_t, *_plan_tensors(rows, fs, dev), y_d, w_d,
+                                               pred_d, lam_d, mcw_d, lr_d, depth=depth)
+            trees.append(tree)
+        if trees:
+            feats[:], thrs[:], leaves[:] = (torch.stack(t).cpu().numpy() for t in zip(*trees))
+        pred[:] = pred_d.cpu().numpy()[:n]
+        return
     for t in range(feats.shape[0]):
         rows, fs = plan[t]
         nt = rows.shape[0]
         ntp = _bucket(nt)
         TRACES.note("fit_tree", npad, n_feat, ntp, fs.shape[0], depth)
-        rows_p = np.full(ntp, -1, np.int64)
-        rows_p[:nt] = rows
         gfull = w * (pred - y)  # f32, identical elementwise to the host DAG
         gp = np.zeros(ntp, np.float32)
         gp[:nt] = gfull[rows]
@@ -350,8 +403,7 @@ def _fit_device(codes, y, w, pred, plan, feats, thrs, leaves, *, depth, lr, lam,
         hp[:nt] = w[rows]
         feat_t, thr_t, lv, full = _tree_levels(
             codes_t,
-            torch.from_numpy(rows_p).to(dev),
-            torch.from_numpy(fs.astype(np.int32)).to(dev),
+            *_plan_tensors(rows, fs, dev),
             torch.from_numpy(gp).to(dev),
             torch.from_numpy(hp).to(dev),
             lam_d,
@@ -366,13 +418,15 @@ def _fit_device(codes, y, w, pred, plan, feats, thrs, leaves, *, depth, lr, lam,
         pred += scaled[full.cpu().numpy()[:n]]
 
 
-def fit_census(n: int, n_feat: int, depth: int, rowsample: float, colsample: float) -> set:
+def fit_census(n: int, n_feat: int, depth: int, rowsample: float, colsample: float,
+               parity_relaxation: bool = False) -> set:
     """Expected `TRACES` keys for one device fit: one shape key per
     (row bucket, features, subsample bucket, sampled features, depth);
     every tree of a fit shares it."""
     nt = n if rowsample >= 1.0 else min(n, max(32, int(rowsample * n)))
     fc = n_feat if colsample >= 1.0 else max(1, int(colsample * n_feat))
-    return {("fit_tree", _bucket(n), n_feat, _bucket(nt), fc, depth)}
+    kind = "fit_tree_res" if parity_relaxation else "fit_tree"
+    return {(kind, _bucket(n), n_feat, _bucket(nt), fc, depth)}
 
 
 # --------------------------------------------------------------------------
@@ -394,6 +448,7 @@ def fit_gbdt(
     rowsample: float = 1.0,
     codes: np.ndarray | None = None,
     options: ExecOptions | None = None,
+    parity_relaxation: bool = False,
 ) -> Forest:
     """Squared-error histogram GBDT (level-wise, fixed depth).
 
@@ -402,6 +457,9 @@ def fit_gbdt(
     the module docstring).  ``codes`` accepts the precomputed
     `binner.transform(x)` so callers fitting several forests on one matrix
     (the funnel's k models) bin it once instead of per fit.
+    ``parity_relaxation`` (device backend only) keeps the boosting update
+    on the device — allclose to the host forest, not bitwise (see the
+    module docstring).
     """
     options = options if options is not None else ExecOptions()
     x = np.asarray(x, np.float64)
@@ -435,7 +493,8 @@ def fit_gbdt(
         mcw=np.float32(min_child_weight),
     )
     if options.backend == "device":
-        _fit_device(codes, y, w, pred, plan, feats, thrs, leaves, device=options.device, **kw)
+        _fit_device(codes, y, w, pred, plan, feats, thrs, leaves, device=options.device,
+                    parity_relaxation=parity_relaxation, **kw)
     else:
         _fit_host(codes, y, w, pred, plan, feats, thrs, leaves, **kw)
 

@@ -283,6 +283,7 @@ def train_picker(
         depth=config.tree_depth,
         seed=config.seed,
         options=options,
+        parity_relaxation=options.parity_relaxation,
     )
     if config.feature_selection:
         with record_function("featsel"):

@@ -8,6 +8,11 @@
   Unsampled features stay exactly 0; codes outside [0, num_bins) add
   nothing.
 * `cumsum_seq(x)` — prefix sums over the last axis.
+* `tree_hist_matmul` — tree_hist's plain version under
+  ``ExecOptions.parity_relaxation``: the same histograms as blocked
+  one-hot matmuls (allclose, not bitwise: the sums are tiled, not
+  `np.add.at`'s left fold), the scatter-free lowering of the reference's
+  `kernels/ref.tree_hist_matmul_ref`.
 
 Both are bit-parity surfaces: the device fit must export the forest the
 host fit does (`core/gbdt.py`), so every segment is summed as an f32
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.groupagg import blocked_onehot_aggregate
 
 
 def tree_hist_plain(codes, feat_ids, node, g, h, num_nodes: int, num_feats: int,
@@ -44,17 +50,37 @@ def tree_hist_plain(codes, feat_ids, node, g, h, num_nodes: int, num_feats: int,
     return out.reshape(2, num_nodes, num_feats, num_bins).to(dev)
 
 
+def tree_hist_matmul(codes, feat_ids, node, g, h, num_nodes: int, num_feats: int,
+                     num_bins: int = 256) -> torch.Tensor:
+    """`tree_hist_plain`'s histograms without a scatter: every (row, column)
+    adds its g and h to segment ``(node·F + feat)·B + code`` through
+    `groupagg.blocked_onehot_aggregate` (IEEE f32 contractions; TF32 off
+    on a CUDA device).  Allclose to the left fold, not bit-equal."""
+    r, c = codes.shape
+    codes, feat_ids, node = codes.long(), feat_ids.long(), node.long()
+    seg = (node[:, None] * num_feats + feat_ids[None, :]) * num_bins + codes
+    keep = (node[:, None] >= 0) & (codes >= 0) & (codes < num_bins)
+    seg = torch.where(keep, seg, -1).reshape(1, -1)
+    gh = torch.stack([g.float()[:, None].expand(r, c).reshape(-1),
+                      h.float()[:, None].expand(r, c).reshape(-1)])[None]  # (1, 2, R·C)
+    out = blocked_onehot_aggregate(gh, seg, num_nodes * num_feats * num_bins)
+    return out[0].reshape(2, num_nodes, num_feats, num_bins)
+
+
 def tree_hist(codes, feat_ids, node, g, h, num_nodes: int, num_feats: int,
-              num_bins: int = 256) -> torch.Tensor:
+              num_bins: int = 256, relaxed: bool = False) -> torch.Tensor:
     """(R, C) int32 codes, (C,) int32 feature ids, (R,) int32 nodes, (R,) f32
     g and h → (2, num_nodes, num_feats, num_bins) f32 histograms.
 
     The kernel reads the codes column by column: pass the transpose of a
-    contiguous (C, R) tensor and no copy is made."""
+    contiguous (C, R) tensor and no copy is made.  ``relaxed`` (the
+    ``parity_relaxation`` fit) picks `tree_hist_matmul` as the plain
+    version on a CPU tensor; on a CUDA tensor the kernel runs either way."""
     name = "tree_hist"
     r, c = codes.shape
     if not _build.on_cuda(name, codes, feat_ids, node, g, h):
-        return tree_hist_plain(codes, feat_ids, node, g, h, num_nodes, num_feats, num_bins)
+        plain = tree_hist_matmul if relaxed else tree_hist_plain
+        return plain(codes, feat_ids, node, g, h, num_nodes, num_feats, num_bins)
     out = torch.zeros((2, num_nodes, num_feats, num_bins), dtype=torch.float32,
                       device=codes.device)
     if r == 0 or c == 0:

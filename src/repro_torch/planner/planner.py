@@ -30,9 +30,13 @@ bounds) and the planner chooses how many partitions to read:
 Returned `PlannedAnswer`s carry ``(estimate, ci_halfwidth,
 partitions_read, plan)`` so accuracy and cost claims are auditable.
 
-The reference's fault-aware reads (injected read failures, substitute
-reads, degraded re-weighting) come with the port's faults slice; here
-every read succeeds.
+Reads are fault-aware: under ``ExecOptions(faults=...)`` each chunk's
+ids first pass through a seeded `faults.FaultInjector`; partitions that
+exhaust their retries are masked inside the same padded chunk shapes,
+must-reads and strata members are substituted from the still-readable
+candidates, and the survivors' SRSWOR weights re-expand — the answer
+reports ``degraded``/``partitions_failed`` instead of raising, unless
+``strict=True`` (`PartitionReadError`).
 """
 from __future__ import annotations
 
@@ -42,12 +46,14 @@ import time
 import numpy as np
 from torch.profiler import record_function
 
+from repro_torch import faults
 from repro_torch.core.funnel import allocate
 from repro_torch.core.outliers import find_outliers
 from repro_torch.errors import (
     BudgetExhaustedError,
     DeadlineExceededError,
     InvalidQueryError,
+    PartitionReadError,
 )
 from repro_torch.planner.variance import StratifiedEstimate, prior_budget, stratified_answer
 from repro_torch.queries.engine import (
@@ -87,8 +93,12 @@ class QueryPlan:
     outliers: int
     strata_sizes: tuple[int, ...]
     predicted_error: float
-    degraded: bool = False  # the error bound stayed unmet after capped
-    # escalation, or a deadline cut it short
+    # robustness plane: degraded-answer report (defaults = fault-free)
+    degraded: bool = False  # failures survived into the answer, the error
+    # bound stayed unmet after capped escalation, or a deadline cut it short
+    partitions_failed: int = 0
+    failed_ids: tuple[int, ...] = ()
+    read_report: dict = dataclasses.field(default_factory=dict)
     # serving plane: escalation stopped by a wall-clock deadline (the
     # answer is the best estimate produced before it expired)
     deadline_hit: bool = False
@@ -135,18 +145,36 @@ class QueryPlanner:
         self.views = views
         self.config = config or PlannerConfig()
         self.chunk_evals = 0  # telemetry: chunk reads issued
+        # fault-aware reads: the injector (None when ExecOptions.faults is
+        # unset) gates every chunk read; irrecoverable partitions are
+        # masked inside the padded chunk shapes and the answer degrades —
+        # the planner never raises for read failures unless strict=True
+        self.injector = faults.injector_for(answers.options)
 
     # ---- read path --------------------------------------------------------
-    def _read(self, query, new_ids, state):
+    def _read(self, query, new_ids, state, failed: set | None = None):
         """Evaluate `new_ids` in fixed-`chunk`-size subset views and fold
         them into the accumulated (keys, raw, row_of) state.  Chunks are
         padded by repeating the first id, so every chunk ships exactly
         ``config.chunk`` partitions — one shape bucket, whatever the round
-        or budget."""
+        or budget.
+
+        Under fault injection each chunk's ids first pass through the
+        injector (retry/backoff/hedging happen there, in virtual time);
+        partitions that exhaust their retries land in ``failed`` and are
+        masked *inside* the same padded chunk shape — the survivors pad
+        to exactly ``config.chunk`` as before, so failures never add a
+        launch key (`queries.device.TRACES` stays flat)."""
         chunk = self.config.chunk
         keys, raw, row_of = state
         for lo in range(0, len(new_ids), chunk):
             ids = np.asarray(new_ids[lo:lo + chunk], dtype=np.int64)
+            if self.injector is not None:
+                ids, lost = self.injector.read_ids(ids)
+                if failed is not None:
+                    failed.update(int(i) for i in lost)
+                if ids.size == 0:
+                    continue  # whole chunk dead: nothing to evaluate
             n_real = ids.size
             if n_real < chunk:
                 ids = np.concatenate([ids, np.full(chunk - n_real, ids[0])])
@@ -176,7 +204,8 @@ class QueryPlanner:
           error bound asks for (the brownout controller shrinks it in
           steps under load);
         * ``deadline`` is an absolute instant on ``clock`` (defaults to
-          ``time.monotonic``; tests pass a virtual clock).  Escalation
+          ``time.monotonic``; serving and chaos tests pass a
+          `faults.VirtualClock` shared with the injector).  Escalation
           checks it between rounds: strict requests whose bound is still
           unmet raise `DeadlineExceededError`, non-strict ones return the
           best answer produced so far with ``plan.deadline_hit`` /
@@ -255,9 +284,29 @@ class QueryPlanner:
         if query.groupby:
             bits = self.picker._gb_bitmaps(query, candidates)
             outlier_ids = find_outliers(candidates, bits, max_out)
+        failed: set[int] = set()
         state = (np.empty(0, np.int64), np.zeros((0, 0, n_raw)), {})
         if outlier_ids.size:
-            state = self._read(query, outlier_ids, state)
+            state = self._read(query, outlier_ids, state, failed)
+            # outlier substitution: a failed must-read is often not the
+            # only partition holding its rare groups — recompute the
+            # outlier cover over the still-readable candidates and read
+            # the substitute holders.  Runs BEFORE strata are built so
+            # substitutes join the weight-1 outlier set instead of
+            # double-counting inside a stratum's expansion.  Terminates:
+            # each pass reads only never-attempted ids.
+            while failed:
+                alive = candidates[~np.isin(
+                    candidates, np.fromiter(failed, np.int64, len(failed))
+                )]
+                subs = find_outliers(
+                    alive, self.picker._gb_bitmaps(query, alive), max_out
+                )
+                subs = np.setdiff1d(subs, outlier_ids)
+                if subs.size == 0:
+                    break
+                outlier_ids = np.union1d(outlier_ids, subs)
+                state = self._read(query, subs, state, failed)
         inliers = np.setdiff1d(candidates, outlier_ids)
         # brownout clamp: escalation may never grow past `limit` sampled
         # partitions, however far the bound would like to go.  Floor of 2
@@ -274,7 +323,10 @@ class QueryPlanner:
         perms = [s[rng.permutation(s.size)] for s in strata]
         total0 = max(0 if budget is not None else 2, rung0 - outlier_ids.size)
         total0 = min(total0, limit)
-        taken = [0] * len(strata)  # read prefix per stratum
+        taken = [0] * len(strata)  # ATTEMPTED prefix per stratum (failed
+        # ids stay counted — the pointer only advances, so escalation
+        # terminates even when every remaining read fails)
+        want = [0] * len(strata)  # surviving-read target per stratum
         schedule: list[int] = []
         total = total0
         est: StratifiedEstimate | None = None
@@ -287,18 +339,44 @@ class QueryPlanner:
                 n_h = max(taken[h], n_h)  # prefix reuse: never shrink
                 if sizes[h] > n_h >= sizes[h] - 1:
                     n_h = sizes[h]  # don't leave a lone unread partition
+                want[h] = max(want[h], n_h)
                 new_ids.extend(int(i) for i in perms[h][taken[h]:n_h])
                 taken[h] = max(taken[h], n_h)
             if new_ids:
-                state = self._read(query, new_ids, state)
+                state = self._read(query, new_ids, state, failed)
+            # replacement substitution: when reads failed, extend each
+            # stratum's attempted prefix until the SURVIVING count reaches
+            # its allocation target (or the stratum runs out of ids).
+            # Terminates: `taken` strictly advances, bounded by `sizes`.
+            while failed:
+                repl: list[int] = []
+                for h, p in enumerate(perms):
+                    lost = sum(1 for i in p[:taken[h]] if int(i) in failed)
+                    deficit = min(want[h], sizes[h] - lost) - (taken[h] - lost)
+                    if deficit > 0:
+                        stop = min(taken[h] + deficit, sizes[h])
+                        repl.extend(int(i) for i in p[taken[h]:stop])
+                        taken[h] = stop
+                if not repl:
+                    break
+                state = self._read(query, repl, state, failed)
             schedule.append(sum(taken))
             keys, raw, row_of = state
             sampled = [p[:t] for p, t in zip(perms, taken)]
-            n_read = sum(s.size for s in sampled)
-            frac_unread = 1.0 - n_read / max(inliers.size, 1)
+            if failed:
+                # degraded weighting: SRSWOR weights re-expand over the
+                # surviving sample per stratum — N_h/n_h with n_h the
+                # survivors, while N_h keeps the full population
+                fail_arr = np.fromiter(failed, np.int64, len(failed))
+                sampled = [s[~np.isin(s, fail_arr)] for s in sampled]
+            n_survived = sum(s.size for s in sampled)
+            frac_unread = 1.0 - n_survived / max(inliers.size, 1)
+            outlier_read = outlier_ids
+            if failed and outlier_ids.size:
+                outlier_read = outlier_ids[~np.isin(outlier_ids, fail_arr)]
             est = stratified_answer(
-                query, plans, keys, raw, row_of, outlier_ids,
-                strata, sampled, cfg.z, frac_unread,
+                query, plans, keys, raw, row_of, outlier_read,
+                strata, sampled, cfg.z, frac_unread, n_failed=len(failed),
             )
             scales = est.stratum_scales
             estimate, hw, predicted = self._apply_caps(
@@ -316,33 +394,43 @@ class QueryPlanner:
                     or sum(taken) >= limit):
                 break
             total = int(min(np.ceil(total * cfg.growth), limit))
-        partitions_read = int(outlier_ids.size + n_read)
-        # degraded contract: the error bound stayed unmet after escalating
-        # to every candidate / the rounds cap, or the deadline cut it
-        # short.  Default: report, never raise.
+        partitions_read = int(outlier_read.size + n_survived)
+        # degraded contract: failures survived into the answer, or the
+        # error bound stayed unmet after escalating to every readable
+        # candidate / the rounds cap.  Default: report, never raise.
         bound_unmet = (
             error_bound is not None and predicted > cfg.safety * error_bound
         )
-        degraded = bound_unmet or deadline_hit
+        degraded = bool(failed) or bound_unmet or deadline_hit
         if strict and bound_unmet and deadline_hit:
             raise DeadlineExceededError(
                 f"deadline expired with error bound {error_bound} unmet "
                 f"after {len(schedule)} round(s): predicted error "
                 f"{predicted:.4f} exceeds the stopping margin",
                 predicted_error=float(predicted),
-                partitions_read=partitions_read,
+                partitions_read=int(outlier_read.size + n_survived),
             )
         if strict and bound_unmet:
             # the stronger contract violation: even reading everything
-            # could not meet the bound (an unachievable bound)
+            # readable could not meet the bound (unachievable bound, or
+            # failures darkened too much of the table)
             raise BudgetExhaustedError(
                 f"error bound {error_bound} unmet after reading "
-                f"{partitions_read} partition(s): predicted error "
+                f"{partitions_read} partition(s) "
+                f"({len(failed)} failed): predicted error "
                 f"{predicted:.4f} exceeds the stopping margin",
                 predicted_error=float(predicted),
                 partitions_read=partitions_read,
             )
-        if done_all and outlier_ids.size + inliers.size == candidates.size:
+        if strict and failed:
+            raise PartitionReadError(
+                f"planner: {len(failed)} partition read(s) failed past the "
+                f"retry budget under strict=True",
+                failed_ids=sorted(failed),
+                report=self.injector.report() if self.injector else {},
+            )
+        if (done_all and not failed
+                and outlier_ids.size + inliers.size == candidates.size):
             mode = "exact"
             hw = np.zeros_like(hw)
         elif caps is not None:
@@ -354,6 +442,9 @@ class QueryPlanner:
             int(candidates.size), int(outlier_ids.size), tuple(sizes),
             float(predicted),
             degraded=degraded,
+            partitions_failed=len(failed),
+            failed_ids=tuple(sorted(failed)),
+            read_report=self.injector.report() if self.injector else {},
             deadline_hit=deadline_hit,
         )
         return PlannedAnswer(

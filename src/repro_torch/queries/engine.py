@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch import faults
 from repro_torch.backends import ExecOptions
 from repro_torch.core.clustering import bucket_size
 from repro_torch.data.table import CATEGORICAL, NUMERIC, Table
@@ -546,6 +547,10 @@ class AnswerStore:
         self.table = table
         self.capacity = int(capacity)
         self.options = options if options is not None else ExecOptions()
+        # fault-aware exact reads: a miss is a full-table scan, which has
+        # no degraded mode — irrecoverable partition reads raise a typed
+        # PartitionReadError instead (see `repro_torch.faults`)
+        self.injector = faults.injector_for(self.options)
         self._cache: dict[str, PartitionAnswers] = {}
         self._partial: dict[tuple[str, str], PartitionAnswers] = {}
         self._eval_cache = EvalCache(table, options=self.options)
@@ -696,6 +701,10 @@ class AnswerStore:
                 self._cache[key] = hit  # re-insert = most recently used
                 return hit
             self.misses += 1
+            if self.injector is not None:
+                self.injector.read_ids_strict(
+                    np.arange(self.table.num_partitions), "AnswerStore.get"
+                )
             ans = per_partition_answers(
                 self.table, query, cache=self._eval_cache, options=self.options
             )
@@ -774,6 +783,10 @@ class AnswerStore:
                 held.update(self._refresh(stale))
             fresh: dict[str, PartitionAnswers] = {}
             if missing:
+                if self.injector is not None:
+                    self.injector.read_ids_strict(
+                        np.arange(n), "AnswerStore.get_batch"
+                    )
                 evaluated = per_partition_answers_batch(
                     self.table, list(missing.values()),
                     cache=self._eval_cache, options=self.options,

@@ -620,3 +620,103 @@ def test_append_stream_on_cuda_equals_cold_rebuild(cuda):
             np.testing.assert_array_equal(a.raw, b.raw)
     assert sketches.incremental_updates == 3 and sketches.full_rebuilds == 0
     assert answers.carried >= len(queries)
+
+
+# --------------------------------------------------------------------------
+# the serving path: the relaxed fit, faulted reads and the front door
+# --------------------------------------------------------------------------
+def test_relaxed_fit_on_cuda_allclose_to_host(cuda):
+    """``parity_relaxation`` on the card: the levels launch tree_hist and
+    cumsum_seq, the boosting update stays on the device; the forest is
+    within the reference's tolerances of the host fit."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(3000, 12))
+    y = x @ rng.normal(size=12) + np.sin(x[:, 0] * 3)
+    kw = dict(num_trees=8, depth=4, rowsample=0.7, colsample=0.8, seed=2)
+    _build.LAUNCHES.reset()
+    got = gbdt.fit_gbdt(x, y, options=ExecOptions(device=str(cuda)), parity_relaxation=True,
+                        **kw)
+    launches = _build.LAUNCHES.counts()
+    assert launches[("tree_hist",)] > 0 and launches[("cumsum_seq",)] > 0
+    want = gbdt.fit_gbdt(x, y, options=ExecOptions(backend="host"), **kw)
+    np.testing.assert_array_equal(got.feat, want.feat)
+    np.testing.assert_array_equal(got.thr, want.thr)
+    np.testing.assert_allclose(got.leaf, want.leaf, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got.predict(x), want.predict(x), rtol=1e-4, atol=1e-4)
+
+
+def _tiny_session(options):
+    from repro_torch import api
+    from repro_torch.core.picker import PickerConfig
+
+    table = make_dataset("tpch", num_partitions=48, rows_per_partition=1024, seed=0)
+    sess = api.Session(table, options=options)
+    sess.prepare(WorkloadSpec(table, seed=0), num_train_queries=12,
+                 picker_config=PickerConfig(num_trees=8, tree_depth=3, feature_selection=False))
+    return sess
+
+
+def test_faulted_planner_on_cuda_matches_host(cuda):
+    """The same policy loses the same partitions on the card as on the
+    port's host backend, and the estimates agree within rtol 1e-5."""
+    from repro_torch.faults import FaultPolicy
+    from repro_torch.planner import QueryPlanner
+
+    policy = FaultPolicy(seed=20240807, dead_frac=0.05, fail_frac=0.05, timeout_frac=0.02,
+                         straggler_frac=0.05)
+    sess = _tiny_session(ExecOptions(device=str(cuda)))
+    card = QueryPlanner(sess.picker, AnswerStore(sess.table, options=sess.options.replace(
+        faults=policy)))
+    host = QueryPlanner(sess.picker, AnswerStore(sess.table, options=ExecOptions(
+        backend="host", faults=policy)))
+    _build.LAUNCHES.reset()
+    failed = 0
+    for q in WorkloadSpec(sess.table, seed=7).sample_workload(8):
+        for bound in (0.05, 1e-6):
+            got, want = card.answer(q, error_bound=bound), host.answer(q, error_bound=bound)
+            assert got.plan.failed_ids == want.plan.failed_ids
+            assert (got.partitions_read, got.plan.schedule) == \
+                (want.partitions_read, want.plan.schedule)
+            np.testing.assert_array_equal(got.group_keys, want.group_keys)
+            np.testing.assert_allclose(got.estimate, want.estimate, rtol=1e-5)
+            failed += got.plan.partitions_failed
+    assert failed > 0
+    assert _build.LAUNCHES.counts().get(("fused_eval",), 0) > 0
+
+
+def test_frontdoor_pump_on_cuda_resolves_every_ticket(cuda):
+    """The real-clock pump thread launches the kernels: four requests from
+    two submitter threads all resolve on a card Session."""
+    import threading
+
+    from repro_torch import api
+    from repro_torch.serving import FrontDoor, FrontDoorConfig
+
+    sess = _tiny_session(ExecOptions(device=str(cuda)))
+    queries = WorkloadSpec(sess.table, seed=7).sample_workload(4)
+    fd = FrontDoor(sess, config=FrontDoorConfig(tenant_rate=1e9, tenant_burst=1e9))
+    results, errors = {}, []
+
+    def client(k):
+        try:
+            for i in range(k, 4, 2):
+                results[i] = fd.submit(api.QuerySpec(queries[i], error_bound=0.1),
+                                       tenant=f"c{k}").result(timeout=120)
+        except Exception as e:  # pragma: no cover - failure capture
+            errors.append(e)
+
+    _build.LAUNCHES.reset()
+    fd.start(interval=0.001)
+    try:
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        fd.stop()
+    assert not errors, errors
+    assert sorted(results) == [0, 1, 2, 3]
+    assert fd.serve_stats()["completed"] == 4
+    assert _build.LAUNCHES.counts().get(("fused_eval",), 0) > 0

@@ -221,3 +221,76 @@ def test_train_funnel_matches_reference(options):
 @pytest.mark.parametrize("sizes,budget", [([10, 5, 3, 1], 7), ([0, 40, 0, 2], 30), ([4, 4], 100)])
 def test_allocate_matches_reference(sizes, budget):
     assert funnel.allocate(sizes, budget) == ref_funnel.allocate(sizes, budget)
+
+
+# --------------------------------------------------------------------------
+# parity_relaxation: device-resident boosting (allclose, not bitwise)
+# --------------------------------------------------------------------------
+RELAXED_KW = dict(num_trees=8, depth=4, rowsample=0.7, colsample=0.8, seed=2)
+
+
+def _assert_relaxed_close(got, want):
+    """The reference's own tolerances (`tests/test_gbdt_device.py`)."""
+    assert got.base == want.base
+    np.testing.assert_array_equal(got.feat, want.feat)
+    np.testing.assert_array_equal(got.thr, want.thr)
+    np.testing.assert_allclose(got.leaf, want.leaf, rtol=1e-4, atol=1e-5)
+
+
+def test_relaxed_fit_allclose_to_host_and_reference():
+    """The relaxed device fit (boosting update on the device, blocked
+    one-hot matmul histograms on the CPU) is allclose to the port's host
+    fit and to the reference's relaxed fit; the default device fit stays
+    bit-identical (the tests above)."""
+    x, y = _data(n=600, f=7, seed=21)
+    host = gbdt.fit_gbdt(x, y, options=HOST, **RELAXED_KW)
+    relaxed = gbdt.fit_gbdt(x, y, options=DEVICE, parity_relaxation=True, **RELAXED_KW)
+    ref_relaxed = ref_gbdt.fit_gbdt(x, y, backend="device", parity_relaxation=True, **RELAXED_KW)
+    for want in (host, ref_relaxed):
+        _assert_relaxed_close(relaxed, want)
+        np.testing.assert_allclose(relaxed.predict(x), want.predict(x), rtol=1e-4, atol=1e-4)
+
+
+def test_relaxed_fit_census():
+    x, y = _data(n=300, f=5)
+    gbdt.TRACES.reset()
+    gbdt.fit_gbdt(x, y, num_trees=4, depth=3, options=DEVICE, parity_relaxation=True)
+    census = gbdt.fit_census(300, 5, 3, 1.0, 1.0, parity_relaxation=True)
+    assert set(gbdt.TRACES.counts()) == census
+    assert gbdt.TRACES.total() == 4
+    assert census == ref_gbdt.fit_census(300, 5, 3, 1.0, 1.0, parity_relaxation=True)
+
+
+def test_relaxed_funnel_allclose_to_reference():
+    """`train_funnel(parity_relaxation=)` threads the flag to every fit."""
+    rng = np.random.default_rng(5)
+    feats = [rng.normal(size=(64, 7)) for _ in range(6)]
+    contribs = [np.abs(rng.normal(size=64)) * (rng.random(64) < 0.4) for _ in range(6)]
+    kw = dict(num_models=2, num_trees=6, depth=3)
+    want = ref_funnel.train_funnel(feats, contribs, backend="device", parity_relaxation=True,
+                                   **kw)
+    gbdt.TRACES.reset()
+    got = funnel.train_funnel(feats, contribs, options=DEVICE, parity_relaxation=True, **kw)
+    assert {k[0] for k in gbdt.TRACES.counts()} == {"fit_tree_res"}
+    for a, b in zip(got.forests, want.forests):
+        _assert_relaxed_close(a, b)
+
+
+@pytest.mark.parametrize("r,c,nn,f", [(700, 3, 8, 6), (256, 1, 1, 2), (513, 4, 16, 9)])
+def test_tree_hist_matmul_allclose_to_reference(r, c, nn, f):
+    """The relaxed plain version against the reference's scatter-free
+    lowering and the bitwise oracle, at the reference's tolerance."""
+    rng = np.random.default_rng(17 + r)
+    codes = rng.integers(0, 256, size=(r, c)).astype(np.int32)
+    fids = np.sort(rng.choice(f, size=c, replace=False)).astype(np.int32)
+    node = rng.integers(-1, nn, size=r).astype(np.int32)
+    g = rng.normal(size=r).astype(np.float32)
+    h = np.abs(rng.normal(size=r)).astype(np.float32)
+    args = tuple(map(jnp.asarray, (codes, fids, node, g, h))) + (nn, f)
+    got = tree_hist.tree_hist(*map(torch.from_numpy, (codes, fids, node, g, h)), nn, f,
+                              relaxed=True).numpy()
+    assert got.shape == (2, nn, f, 256)
+    for want in (ref_kernels.tree_hist_matmul_ref(*args), ref_kernels.tree_hist_ref(*args)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-4)
+    unsampled = np.setdiff1d(np.arange(f), fids)
+    assert not got[:, :, unsampled].any()
