@@ -65,13 +65,30 @@ Phases, each fatal on failure:
    on new queries from two submitter threads; ``[relaxed]`` phase 6's
    trees refitted with ``parity_relaxation`` on the card, within the
    reference's tolerances of the host forest;
-9. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
-   Each kernel's ``session_launches``, ``stream_launches`` and
-   ``serve_launches`` count its launches in the Session, streaming and
-   serving paths, and ``launches`` is their sum.
+9. the lifecycle path on the same Session over the grown table:
+   ``[lifecycle]`` ``Session.save`` to a fresh temporary directory with a
+   ``WriteAheadLog`` beside it, then through the WAL a soft delete of 5%
+   of the live partitions (chosen by ``--seed``), a compaction, a
+   rebalance over 4 shards and an append of ``--partitions`` / 64
+   partitions, each folded (sketches, the device stack, every cached
+   answer) and followed by the held-out executes (after the delete: no
+   tombstoned partition read, coverage ≥ 0.9 against the exact answers
+   over the live partitions); then a cold oracle on a copy of the table
+   (sketches, cached answers and executes bit-equal; no full sketch
+   rebuild, two in-bucket stack rewrites, no eval launch key beyond the
+   streaming appends') and
+   new queries over the rewritten stack bit-equal to a cold
+   ``EvalCache``'s; ``[wal]`` a delete that crashes at ``wal.apply``,
+   ``wal.recover`` of the directory against ``replay`` on the live table
+   (tables, sketches, answers and executes equal);
+10. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
+   Each kernel's ``session_launches``, ``stream_launches``,
+   ``serve_launches`` and ``lifecycle_launches`` count its launches in
+   the Session, streaming, serving and lifecycle paths, and ``launches``
+   is their sum.
 
-The whole run takes about 11 minutes (650 s on an H100 80GB HBM3 at a
-700 W power limit), phase 8 about 200 s of it.
+The whole run takes 17 to 18 minutes (1025 to 1062 s on an H100 80GB
+HBM3 at a 700 W power limit), phases 8 and 9 about 240 to 270 s each.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -79,6 +96,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1142,8 +1160,9 @@ def check_answers_bits(got, want) -> None:
                                       np.ascontiguousarray(w.raw).view(np.uint64))
 
 
-def stream_path(sess, train_queries, held_out, args) -> dict:
-    """The streaming append path on the prepared Session → its launches.
+def stream_path(sess, train_queries, held_out, args) -> tuple[dict, frozenset]:
+    """The streaming append path on the prepared Session → its launches
+    and the eval launch keys of one in-bucket append.
 
     The training answers are cached; a warm-up append overflows the device
     stack's partition bucket, and the held-out queries that miss re-pad
@@ -1287,7 +1306,7 @@ def stream_path(sess, train_queries, held_out, args) -> dict:
           f"over {APPENDS} appends ({len(keys[0][0])} eval, {len(keys[0][1])} ingest); "
           f"launches {json.dumps(launches, sort_keys=True)}; session stats "
           f"{json.dumps(stats, sort_keys=True)}", flush=True)
-    return launches
+    return launches, keys[0][0]
 
 
 # --------------------------------------------------------------------------
@@ -1620,6 +1639,366 @@ def serve_path(sess, held_out, fit, args) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 9: the lifecycle path on the prepared Session
+# --------------------------------------------------------------------------
+LIFECYCLE_KERNELS = ("fused_eval", "moments", "histogram_range", "bincount")
+DELETE_FRAC = 0.05  # soft-deleted share of the live partitions
+CRASH_DELETES = 8  # partitions of the delete that crashes at ``wal.apply``
+SHARDS = 4
+NEW_QUERIES = 8  # full-stack answers over the rewritten stack
+
+
+@contextlib.contextmanager
+def timing(owner, name: str, sink: list):
+    """Wrap ``owner.name`` (a method of a class or an instance) so each
+    call appends its wall seconds, the card synchronized, to ``sink``."""
+    import torch
+
+    saved = vars(owner).get(name)
+    fn = getattr(owner, name)
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            sink.append(time.perf_counter() - t)
+
+    setattr(owner, name, timed)
+    try:
+        yield sink
+    finally:
+        if saved is None:
+            delattr(owner, name)
+        else:
+            setattr(owner, name, saved)
+
+
+def fold(sess) -> tuple[float, float, float]:
+    """Fold the table's pending events into the Session's stores →
+    (sketches, eval cache incl. any stack rewrite, answers + views) s.
+    Every cached full answer is brought current (after an append, one
+    delta evaluation), as the streaming phase does."""
+    import torch
+
+    t0 = time.perf_counter()
+    sess.sketches.sketches()
+    t1 = time.perf_counter()
+    sess.answers._eval_cache._sync()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sess.answers.get_batch([a.query for a in sess.answers._cache.values()])
+    sess.views.refresh()
+    torch.cuda.synchronize()
+    return t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+def run_executes(sess, held_out) -> tuple[list, list]:
+    """The held-out queries at the error bound → (answers, wall seconds)."""
+    import torch
+
+    from repro_torch.api import QuerySpec
+
+    planned, walls = [], []
+    for q in held_out:
+        t = time.perf_counter()
+        planned.append(sess.execute(QuerySpec(q, error_bound=ERROR_BOUND)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return planned, walls
+
+
+def coverage_of(planned, truth) -> tuple[float, float]:
+    import numpy as np
+
+    rel = np.array([m["avg_rel_err"] for m in planned_errors(planned, truth)])
+    return float((rel <= ERROR_BOUND).mean()), float(rel.mean())
+
+
+def check_same_planned(got, want, what: str) -> None:
+    """Estimates, group keys, CI halfwidths and partitions read, byte for byte."""
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        for field in ("group_keys", "estimate", "ci_halfwidth"):
+            if getattr(g, field).tobytes() != getattr(w, field).tobytes():
+                raise AssertionError(f"{what}: query {i} {field} differs")
+        if g.partitions_read != w.partitions_read:
+            raise AssertionError(f"{what}: query {i} read {g.partitions_read} partitions, "
+                                 f"not {w.partitions_read}")
+
+
+def cold_oracle(sess):
+    """A from-scratch planner on a deep copy of the Session's physical
+    table, tombstones and directory: fresh sketch store, answer store,
+    views and planner, with the Session's funnel and cluster mask."""
+    import copy
+
+    from repro_torch.core.features import FeatureBuilder
+    from repro_torch.core.picker import PS3Picker
+    from repro_torch.core.sketches import SketchStore
+    from repro_torch.planner import QueryPlanner, ViewStore
+    from repro_torch.queries.engine import AnswerStore
+
+    t = copy.deepcopy(sess.table)
+    store = SketchStore(t, options=sess.options)
+    p = sess.picker
+    picker = PS3Picker(t, FeatureBuilder(t, store.sketches()), p.funnel, p.cluster_mask,
+                       p.config, options=sess.options)
+    answers = AnswerStore(t, options=sess.options)
+    views = ViewStore(t, options=sess.options)
+    for v in sess.views._views:
+        views.register(v.groupby, v.aggregates)
+    return store, answers, QueryPlanner(picker, answers, views=views,
+                                        config=sess.planner_config)
+
+
+def lifecycle_ops(sess, log, held_out, known, args) -> list:
+    """`[lifecycle]`: a delete of ``DELETE_FRAC`` of the live partitions,
+    a compaction, a rebalance and an append, each through the WAL, folded
+    and followed by the held-out executes → the last executes.  They may
+    launch no eval key outside ``known`` (the streaming appends' keys and
+    those launched since the last reset)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import lifecycle
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.table import Table
+    from repro_torch.queries import device
+    from repro_torch.queries.engine import per_partition_answers_batch
+
+    table, cache = sess.table, sess.answers._eval_cache
+    rng = np.random.default_rng(args.seed)
+    live_ext = table.ext_ids[table.live_mask()]
+    victims = rng.choice(live_ext, size=int(round(DELETE_FRAC * live_ext.size)), replace=False)
+    delta = make_dataset("tpch", num_partitions=append_size(args.partitions),
+                         rows_per_partition=table.rows_per_partition, layout="random",
+                         seed=100 + APPENDS)
+    ops = (
+        ("delete", lambda: log.delete(table, victims)),
+        ("compact", lambda: log.compact(table)),
+        ("rebalance", lambda: log.rebalance(table, lifecycle.rebalance_plan(table, SHARDS))),
+        ("append", lambda: log.append(table, dict(delta.columns))),
+    )
+    planned, new_keys = None, set()
+    known = set(known) | set(device.TRACES.counts())
+    for name, op in ops:
+        keys = frozenset(device.TRACES.counts())
+        p0 = table.num_partitions
+        t = time.perf_counter()
+        op()
+        t_op = time.perf_counter() - t
+        rewrites = []
+        with timing(cache, "_rewrite_stack", rewrites):
+            t_sk, t_cache, t_ans = fold(sess)
+        reads, read = [], sess.planner._read
+
+        def record(query, new_ids, *a, **k):
+            reads.append(np.asarray(new_ids))
+            return read(query, new_ids, *a, **k)
+
+        sess.planner._read = record
+        try:
+            planned, walls = run_executes(sess, held_out)
+        finally:
+            del sess.planner._read
+        new_keys |= frozenset(device.TRACES.counts()) - keys
+        if name == "delete":
+            dead = np.array(sorted(table.tombstones), np.int64)
+            if any(np.isin(ids, dead).any() for ids in reads):
+                raise AssertionError("an execute read a tombstoned partition")
+            live = table.live_mask()
+            truth_table = Table(table.schema, {k: v[live] for k, v in table.columns.items()},
+                                name=f"{table.name}/live")
+            truth = per_partition_answers_batch(truth_table, held_out, options=sess.options)
+            what = f"against the exact answers over the {truth_table.num_partitions} live"
+        else:
+            truth = sess.answers.get_batch(held_out)
+            what = f"against the exact answers over all {table.num_partitions}"
+        torch.cuda.synchronize()
+        cov, mean_err = coverage_of(planned, truth)
+        if name == "delete" and cov < 0.9:
+            raise AssertionError(f"coverage {cov} over the live partitions is under 0.9 "
+                                 "(bench_lifecycle's gate)")
+        read_n = np.array([a.partitions_read for a in planned], np.float64)
+        rewrite = f", _rewrite_stack {rewrites[0]:.3f} s" if rewrites else ""
+        print(f"[lifecycle] {name} through the WAL: {p0} -> {table.num_partitions} partitions "
+              f"({table.num_live} live) in {t_op:.3f} s; fold: sketches {t_sk:.3f} s, eval "
+              f"cache {t_cache:.3f} s{rewrite}, answers and views {t_ans:.3f} s; "
+              f"{len(held_out)} executes p50 {np.median(walls):.3f} s, partitions read mean "
+              f"{read_n.mean():.1f}; coverage {cov:.4f}, mean avg_rel_err {mean_err:.4f} {what} "
+              f"partitions", flush=True)
+    if new_keys - known:
+        raise AssertionError(f"the lifecycle ops added launch keys: {sorted(new_keys - known)}")
+    return planned
+
+
+def lifecycle_checks(sess, planned, held_out, before, args) -> None:
+    """`[lifecycle]` against a cold oracle on a deep copy of the table."""
+    import torch
+
+    from repro_torch.queries.engine import EvalCache, per_partition_answers_batch
+    from repro_torch.queries.generator import WorkloadSpec
+
+    cache = sess.answers._eval_cache
+    t = time.perf_counter()
+    store, answers, planner = cold_oracle(sess)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    check_sketches_bits(sess.sketches.sketches(), store.sketches())
+    queries = [a.query for a in sess.answers._cache.values()]
+    t = time.perf_counter()
+    cold = answers.get_batch(queries)
+    torch.cuda.synchronize()
+    t_answers = time.perf_counter() - t
+    check_answers_bits(sess.answers.get_batch(queries), cold)
+    t = time.perf_counter()
+    oracle = [planner.answer(q, error_bound=ERROR_BOUND) for q in held_out]
+    t_plan = time.perf_counter() - t
+    check_same_planned(planned, oracle, "live executes against the cold oracle's")
+    stats = sess.stats()
+    if stats["sketch_full_rebuilds"] != before["full"]:
+        raise AssertionError("a lifecycle fold rebuilt the sketches in full")
+    if stats["stack_rewrites"] != before["rewrites"] + 2:
+        raise AssertionError(f"{stats['stack_rewrites'] - before['rewrites']} stack rewrites, "
+                             "expected 2")
+    bucket = cache.device_stack().shape[1]
+    if bucket != before["bucket"] or cache.stack_rebuilds != before["rebuilds"]:
+        raise AssertionError(f"the stack left its {before['bucket']}-slot bucket")
+    fresh = WorkloadSpec(sess.table, seed=args.seed + 3).sample_workload(NEW_QUERIES)
+    t = time.perf_counter()
+    got = per_partition_answers_batch(sess.table, fresh, cache=cache, options=sess.options)
+    torch.cuda.synchronize()
+    t_live = time.perf_counter() - t
+    want = per_partition_answers_batch(sess.table, fresh, options=sess.options,
+                                       cache=EvalCache(sess.table, options=sess.options))
+    check_answers_bits(got, want)
+    print(f"[lifecycle] cold oracle on a copy of the table: stores and planner {t_build:.2f} s, "
+          f"{len(queries)} answers {t_answers:.2f} s, {len(held_out)} planner answers "
+          f"{t_plan:.2f} s", flush=True)
+    print(f"[check] lifecycle: sketches (every field) and {len(queries)} cached answers "
+          f"bit-equal to the cold oracle's; {len(held_out)} executes equal in estimates, group "
+          f"keys, CI halfwidths and partitions read; sketch full rebuilds unmoved "
+          f"({stats['sketch_full_rebuilds']}), stack rewrites "
+          f"{stats['stack_rewrites'] - before['rewrites']}, stack in its {bucket}-slot bucket, "
+          f"no eval launch key beyond the streaming appends'; {NEW_QUERIES} new queries over "
+          f"the rewritten stack "
+          f"({t_live:.2f} s) bit-equal to a cold EvalCache's", flush=True)
+
+
+def wal_checks(sess, log, root, held_out, args) -> None:
+    """`[wal]`: a delete that crashes at ``wal.apply``, `wal.recover` of the
+    directory and `replay` on the live table; the two must agree."""
+    import numpy as np
+
+    from repro_torch import api, wal
+    from repro_torch.errors import InjectedCrash
+    from repro_torch.faults import FaultInjector, FaultPolicy
+
+    table = sess.table
+    rng = np.random.default_rng(args.seed + 1)
+    victims = rng.choice(table.ext_ids[table.live_mask()], size=CRASH_DELETES, replace=False)
+    crashing = wal.WriteAheadLog(log.directory, injector=FaultInjector(
+        FaultPolicy(seed=args.seed).with_crash("wal.apply")))
+    try:
+        crashing.delete(table, victims)
+    except InjectedCrash as e:
+        if e.point != "wal.apply":
+            raise
+    else:
+        raise AssertionError("the delete did not crash at wal.apply")
+    records = log._record_ids()
+    if len(records) != 5 or table.tombstones:
+        raise AssertionError(f"records {records}, tombstones {sorted(table.tombstones)}")
+    builds, replays = [], []
+    t = time.perf_counter()
+    with timing(api.SketchStore, "__init__", builds), \
+            timing(wal.WriteAheadLog, "replay", replays):
+        rec = wal.recover(root)
+    t_recover = time.perf_counter() - t
+    t = time.perf_counter()
+    if wal.WriteAheadLog(log.directory).replay(table) != 1:
+        raise AssertionError("the live replay did not apply the crashed delete")
+    t_live = time.perf_counter() - t
+    a, b = rec.table, table
+    if (a.version, a.tombstones, a.next_ext, a.lifecycle_log) != (
+            b.version, b.tombstones, b.next_ext, b.lifecycle_log) or \
+            a.ext_ids.tobytes() != b.ext_ids.tobytes():
+        raise AssertionError("the recovered table's lifecycle state differs")
+    for k, v in b.columns.items():
+        if v.tobytes() != a.columns[k].tobytes():
+            raise AssertionError(f"the recovered column {k} differs")
+    t = time.perf_counter()
+    rec_sk = rec.sketches.sketches()
+    t_rebuild = time.perf_counter() - t
+    check_sketches_bits(rec_sk, sess.sketches.sketches())
+    # the replayed chain moves an append, so the recovered answer store
+    # dropped its entries (events_foldable); a planner read slices a
+    # cached full answer (every occupied group of the table) where it
+    # would evaluate a chunk (the chunk's groups), so warm the held-out
+    # answers first and both Sessions answer from full entries
+    t = time.perf_counter()
+    check_answers_bits(rec.answers.get_batch(held_out), sess.answers.get_batch(held_out))
+    t_warm = time.perf_counter() - t
+    got, walls = run_executes(rec, held_out)
+    want, _ = run_executes(sess, held_out)
+    check_same_planned(got, want, "recovered executes against the live Session's")
+    print(f"[wal] crash at wal.apply with the delete of {CRASH_DELETES} durable; wal.recover "
+          f"{t_recover:.2f} s: restore {t_recover - replays[0]:.2f} s (its Session(table) "
+          f"sketch build {builds[0]:.2f} s), replay of {len(records)} records "
+          f"{replays[0]:.3f} s; live replay {t_live:.3f} s; {len(held_out)} answers warmed on "
+          f"the recovered Session {t_warm:.2f} s, then {len(held_out)} executes p50 "
+          f"{np.median(walls):.3f} s; its sketches rebuilt in full in {t_rebuild:.2f} s "
+          f"(full rebuilds {rec.stats()['sketch_full_rebuilds']}: the replayed chain moves an "
+          f"append, which events_foldable refuses)", flush=True)
+    print(f"[check] wal: recovered and live tables equal in bytes, tombstones "
+          f"({len(a.tombstones)}), ext_ids, next_ext and lifecycle_log; sketches and "
+          f"{len(held_out)} answers bit-equal; {len(held_out)} executes byte-equal", flush=True)
+
+
+def lifecycle_path(sess, held_out, stream_keys, args) -> dict:
+    """Phase 9 on the grown table → its launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import lifecycle, wal
+    from repro_torch.kernels import _build
+
+    cache = sess.answers._eval_cache
+    root = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    _build.LAUNCHES.reset()
+    t_phase = time.perf_counter()
+    try:
+        lifecycle.ensure_directory(sess.table)
+        snap = os.path.join(root, "snapshot")
+        t = time.perf_counter()
+        sess.save(snap)
+        t_save = time.perf_counter() - t
+        sizes = {name: os.path.getsize(os.path.join(snap, name))
+                 for name in sorted(os.listdir(snap))}
+        print(f"[lifecycle] Session.save {t_save:.2f} s, {sum(sizes.values())} bytes "
+              f"{json.dumps(sizes)} ({len(sess.answers._cache)} full and "
+              f"{len(sess.answers._partial)} partial answers cached)", flush=True)
+        log = wal.WriteAheadLog(os.path.join(root, "wal"))
+        before = dict(full=sess.sketches.full_rebuilds, rewrites=cache.stack_rewrites,
+                      rebuilds=cache.stack_rebuilds, bucket=cache.device_stack().shape[1])
+        planned = lifecycle_ops(sess, log, held_out, stream_keys, args)
+        lifecycle_checks(sess, planned, held_out, before, args)
+        wal_checks(sess, log, root, held_out, args)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = launches_of(LIFECYCLE_KERNELS + (
+        ("group_aggregate",) if any(not a.query.predicate.groups
+                                    for a in sess.answers._cache.values()) else ()))
+    print(f"[lifecycle] the lifecycle phase took {time.perf_counter() - t_phase:.2f} s; "
+          f"launches {json.dumps(launches, sort_keys=True)}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import numpy as np
@@ -1682,14 +2061,16 @@ def main(argv=None) -> int:
 
     fit = check_forest(sess, table, args)
 
-    stream = stream_path(sess, queries, held_out, args)
+    stream, stream_keys = stream_path(sess, queries, held_out, args)
     serve = serve_path(sess, held_out, fit, args)
+    life = lifecycle_path(sess, held_out, stream_keys, args)
     for name, rec in records.items():
         rec["session_launches"] = launches.get(name, 0)
         rec["stream_launches"] = stream.get(name, 0)
         rec["serve_launches"] = serve.get(name, 0)
+        rec["lifecycle_launches"] = life.get(name, 0)
         rec["launches"] = (rec["session_launches"] + rec["stream_launches"]
-                           + rec["serve_launches"])
+                           + rec["serve_launches"] + rec["lifecycle_launches"])
 
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(f"[card] {card}", flush=True)

@@ -22,12 +22,17 @@ per-(backend, chunk) EMA of the session's observed read rate), or
 `Session` owns the whole lifecycle — `Table` + `SketchStore` +
 `AnswerStore` + `ViewStore` + trained picker + `QueryPlanner` — and
 keeps every piece consistent across table mutations: partition appends
-(`data.table.append_partitions`) fold into the sketches, cached answers
-and views, bit-identical to a cold rebuild; any other version bump
-rebuilds them.  The kernel passes and delta evaluations of a fold read
-only the new partitions, but each cached answer's merge copies its
-(P, groups) raw tensor and the categorical heavy hitters are recomputed
-over (P, cardinality) counts, so a fold still grows with the table.
+(`data.table.append_partitions`) and the lifecycle ops
+(`delete_partitions`, `compact`, `rebalance`; `repro_torch.lifecycle`)
+fold into the sketches, the device column stack, cached answers and
+views, bit-identical to a cold rebuild on the same table; an unlogged
+version bump rebuilds them.  The kernel passes and delta evaluations of
+an append fold read only the new partitions, but each cached answer's
+merge copies its (P, groups) raw tensor and the categorical heavy
+hitters are recomputed over (P, cardinality) counts, so a fold still
+grows with the table.  `save` / `restore` snapshot the table and its
+derived state; with `repro_torch.wal.WriteAheadLog` and `wal.recover` a
+crash at any point recovers bit-identically.
 
 Robustness and serving: ``ExecOptions(faults=FaultPolicy(...))`` runs
 every partition read through a seeded injector (degraded answers report
@@ -36,15 +41,13 @@ every partition read through a seeded injector (degraded answers report
 in front of one or more prepared Sessions (a `VirtualClock` makes it
 deterministic).  On the CPU, pass ``ExecOptions(device="cpu")`` (or
 ``backend="host"``); the default runs on the card or raises.
-
-Not ported yet: the partition lifecycle (`delete_partitions`, `compact`,
-`rebalance`) and the WAL (`save`, `restore`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 
+from repro_torch import lifecycle, wal
 from repro_torch.backends import ExecOptions
 from repro_torch.core.features import FeatureBuilder
 from repro_torch.errors import (  # noqa: F401  (re-export)
@@ -57,6 +60,7 @@ from repro_torch.errors import (  # noqa: F401  (re-export)
     ReproError,
     SessionStateError,
     StaleStateError,
+    WalCorruptError,
 )
 from repro_torch.faults import FaultPolicy, VirtualClock  # noqa: F401  (re-export)
 from repro_torch.core.picker import PickerConfig, train_picker
@@ -86,6 +90,7 @@ __all__ = [
     "SessionStateError",
     "StaleStateError",
     "VirtualClock",
+    "WalCorruptError",
 ]
 
 
@@ -281,12 +286,46 @@ class Session:
     def execute_batch(self, specs: list[QuerySpec | Query]) -> list[PlannedAnswer]:
         return [self.execute(s) for s in specs]
 
+    # ---- partition lifecycle (see repro_torch.lifecycle) ------------------
+    def delete_partitions(self, ext_ids) -> list[int]:
+        """Soft-delete partitions by external id.  Derived state folds the
+        tombstones in on next access (no rebuild); estimates and CI
+        halfwidths exclude the deleted mass at once."""
+        return lifecycle.delete_partitions(self.table, ext_ids)
+
+    def compact(self):
+        """Reclaim tombstoned slots (a survivor gather; O(touched) folds on
+        next access) → the surviving physical slots."""
+        return lifecycle.compact(self.table)
+
+    def rebalance(self, num_shards: int | None = None, perm=None):
+        """Reshard: apply the canonical ``num_shards`` plan or an explicit
+        slot permutation.  External ids are unchanged."""
+        if (num_shards is None) == (perm is None):
+            raise ValueError("pass exactly one of num_shards= / perm=")
+        if perm is None:
+            perm = lifecycle.rebalance_plan(self.table, num_shards)
+        return lifecycle.rebalance(self.table, perm)
+
+    # ---- durability (WAL + snapshot; see repro_torch.wal) -------------------
+    def save(self, directory: str) -> str:
+        """Snapshot the table and all derived state (sketches, answer
+        caches, views, picker) to ``directory`` → the manifest path.
+        `Session.restore` round-trips it bit-identically."""
+        return wal.save_snapshot(self, directory)
+
+    @classmethod
+    def restore(cls, directory: str, *, options: ExecOptions | None = None,
+                planner_config: PlannerConfig | None = None) -> "Session":
+        """A Session rebuilt from `save`'s snapshot, on ``options`` (the
+        card by default); a WAL tail is replayed by `wal.recover`."""
+        return wal.restore_snapshot(cls, directory, options=options,
+                                    planner_config=planner_config)
+
     # ---- observability ----------------------------------------------------
     def stats(self) -> dict:
-        """Counters of the session's parts.  Unlike the reference there are
-        no keys for what the port lacks yet: ``num_live`` and the stack
-        rewrites (lifecycle).  The answer store's append counters carry the
-        names the reference's serving stats give them."""
+        """Counters of the session's parts.  The answer store's append
+        counters carry the names the reference's serving stats give them."""
         planner = self.planner
         injector = None if planner is None else planner.injector
         return {
@@ -302,8 +341,10 @@ class Session:
             "ema_keys": len(self._rates),
             "answer_ttl_expired": self.answers.ttl_expired,
             "num_partitions": self.table.num_partitions,
+            "num_live": self.table.num_live,
             "sketch_incremental_updates": self.sketches.incremental_updates,
             "sketch_full_rebuilds": self.sketches.full_rebuilds,
+            "stack_rewrites": self.answers._eval_cache.stack_rewrites,
             "answers_carried": self.answers.carried,
             "answer_delta_evals": self.answers.delta_evals,
             "degraded_answers": self._degraded,

@@ -17,12 +17,13 @@ same tensors in numpy):
     columns; K capped at 25 per the paper).
 
 `build_sketches` is the cold build; `update_sketches` extends a result
-to appended partitions, bit-identical to a cold build of the grown
-table, and `SketchStore` keeps one table's sketches current that way.
-A fold reads the rows of only the new partitions (kernels, AKMV); the
+to appended partitions and `gather_sketches` follows a compaction or a
+rebalance, each bit-identical to a cold build of the mutated table, and
+`SketchStore` keeps one table's sketches current that way.  An append
+fold reads the rows of only the new partitions (kernels, AKMV); the
 categorical heavy hitters are recomputed over the merged (P, cardinality)
-counts.  Phases are labelled ``sketches.*`` (cold build) and
-``stream.*`` (append folds) for `torch.profiler`.
+counts.  Phases are labelled ``sketches.*`` (cold build), ``stream.*``
+(append folds) and ``lifecycle.*`` (gathers) for `torch.profiler`.
 """
 from __future__ import annotations
 
@@ -36,11 +37,12 @@ from repro_torch.core.ingest import (
     build_statistics,
     delta_statistics,
     discrete_span,
+    fold_partition_spans,
     int_span,
     merge_discrete_span,
     partition_int_spans,
 )
-from repro_torch.data.table import CATEGORICAL, NUMERIC, Table
+from repro_torch.data.table import CATEGORICAL, NUMERIC, Table, events_foldable
 
 NUM_BUCKETS = 10
 AKMV_K = 128
@@ -511,16 +513,95 @@ def update_sketches(
     return TableSketches(sk.table_name, n, table.rows_per_partition, cols)
 
 
+def gather_sketches(sk: TableSketches, table: Table, idx: np.ndarray) -> TableSketches:
+    """Reorder or shrink ``sk`` to partitions ``idx`` (in the numbering
+    ``sk`` covers): the lifecycle fold of a compaction (``idx`` = the
+    surviving slots) and of a rebalance (``idx`` = the permutation).
+
+    Every per-partition tensor is a function of its partition's rows, so
+    the gather is bitwise what a cold `build_sketches` of the reorganized
+    table computes.  Only the global reductions re-fold:
+
+      * discrete-numeric spans re-fold from `ColumnSketch.part_spans`
+        (`core.ingest.fold_partition_spans`).  The survivors can only
+        *re*-qualify a column that an earlier append disqualified; then
+        the exact counts are recomputed from the surviving rows, as the
+        cold pass over them does (host numpy: O(survivors));
+      * categorical global heavy hitters and bitmaps recompute from the
+        gathered counts in the gathered partition order, so the float
+        fold matches the cold pass bit for bit.
+
+    ``table`` must already hold the reorganized columns, with slots
+    ``[0, len(idx))`` matching ``idx``'s gather (later appends may extend
+    it; they fold separately).  Returns a new `TableSketches`.
+    """
+    idx = np.asarray(idx, dtype=np.int64)
+    n = idx.size
+    cols: dict[str, ColumnSketch] = {}
+    for spec in table.schema:
+        old = sk.columns[spec.name]
+        ndv = old.ndv[idx]
+        dv_freq = old.dv_freq[idx]
+        if spec.kind == NUMERIC:
+            pspans = (
+                old.part_spans[idx]
+                if old.part_spans is not None
+                else partition_int_spans(table.columns[spec.name][:n])
+            )
+            span = fold_partition_spans(pspans)
+            if span is None:
+                hh_stats = np.zeros((n, 3), np.float64)
+                hh_items = [dict() for _ in range(n)]
+                dspan = None
+            elif old.discrete_span is not None:
+                # still qualified: per-partition heavy-hitter rows do not
+                # depend on the span, so they ride the gather; only the
+                # recorded union narrows
+                hh_stats = old.hh_stats[idx]
+                hh_items = [old.hh_items[i] for i in idx]
+                dspan = (span[0], span[0] + span[1] - 1)
+            else:
+                # re-qualified: an earlier append blew the span cap and the
+                # survivors fit again — exact counts from the surviving
+                # rows, as the cold pass over them computes
+                lo, width = span
+                counts = _partition_bincount(
+                    table.columns[spec.name][:n].astype(np.int64) - lo, width
+                )
+                hh_stats, items_raw, _, _ = _heavy_hitters_exact(counts)
+                hh_items = [{k + lo: v for k, v in d.items()} for d in items_raw]
+                dspan = (lo, lo + width - 1)
+            cols[spec.name] = ColumnSketch(
+                spec.name, NUMERIC, old.measures[idx], old.hist_edges[idx],
+                None, ndv, dv_freq, hh_stats, hh_items, None, None,
+                discrete_span=dspan, part_spans=pspans,
+            )
+        else:
+            counts = old.cat_counts[idx]
+            hh_stats, hh_items, freq, is_hh = _heavy_hitters_exact(counts)
+            ghh = bitmap = None
+            if spec.groupable:
+                ghh, bitmap = _global_heavy_hitters(freq, is_hh, spec.cardinality)
+            cols[spec.name] = ColumnSketch(
+                spec.name, CATEGORICAL, np.zeros((n, 9)), None, counts,
+                ndv, dv_freq, hh_stats, hh_items, ghh, bitmap,
+            )
+    return TableSketches(sk.table_name, n, table.rows_per_partition, cols)
+
+
 class SketchStore:
     """Version-tracked sketch holder for one table.
 
     Builds the sketches at construction and hands them out through
     `sketches()`, which checks `Table.version` and folds the pending
-    `Table.mutation_events`: a chain of pure appends extends the sketches
-    through `update_sketches` (counted in ``incremental_updates``).  Any
-    other chain — deletes, compaction, rebalancing or an unlogged bump —
-    rebuilds in full (`build_sketches`, counted in ``full_rebuilds``);
-    their folds (`gather_sketches`) come with the partition lifecycle.
+    `Table.mutation_events`: appends extend the sketches through
+    `update_sketches` (O(new partitions)), a compaction or a rebalance
+    gathers them through `gather_sketches` (O(touched)), and a delete
+    changes nothing (tombstoned slots keep their sketch rows; consumers
+    filter by `Table.live_mask`).  Only a chain that
+    `data.table.events_foldable` refuses, or an unlogged bump, rebuilds in
+    full (`build_sketches`).  ``incremental_updates`` / ``full_rebuilds``
+    count which path each sync took.
     """
 
     def __init__(self, table: Table, *, options: ExecOptions | None = None):
@@ -536,16 +617,23 @@ class SketchStore:
         if self.table.version == self._version:
             return self._sk
         events = self.table.mutation_events(self._version)
-        if events and all(ev[0] == "append" for ev in events):
-            self.incremental_updates += 1
-            # one update covers the whole chain: it reads [start:) of the
-            # final table
-            with record_function("stream.sketches"):
-                self._sk = update_sketches(
-                    self._sk, self.table, events[0][1], options=self.options
-                )
-        else:
+        if events is None or not events_foldable(events):
             self.full_rebuilds += 1
             self._sk = build_sketches(self.table, options=self.options)
+        else:
+            self.incremental_updates += 1
+            for ev in events:
+                if ev[0] == "append":
+                    # one update covers every remaining append: it reads
+                    # [start:) of the final table, and no move follows it
+                    # (events_foldable)
+                    if self._sk.num_partitions == ev[1]:
+                        with record_function("stream.sketches"):
+                            self._sk = update_sketches(
+                                self._sk, self.table, ev[1], options=self.options
+                            )
+                elif ev[0] != "delete":  # compact / rebalance: gather
+                    with record_function("lifecycle.sketches"):
+                        self._sk = gather_sketches(self._sk, self.table, np.asarray(ev[1]))
         self._version = self.table.version
         return self._sk

@@ -35,7 +35,7 @@ from torch.profiler import record_function
 from repro_torch import faults
 from repro_torch.backends import ExecOptions
 from repro_torch.core.clustering import bucket_size
-from repro_torch.data.table import CATEGORICAL, NUMERIC, Table
+from repro_torch.data.table import CATEGORICAL, NUMERIC, Table, events_foldable
 from repro_torch.errors import InvalidQueryError, StaleStateError
 from repro_torch.queries.ir import Aggregate, Predicate, Query
 
@@ -236,16 +236,20 @@ class EvalCache:
     never needs the device).
 
     **Invalidation semantics.**  Every accessor checks the table's data
-    version first.  A version bump whose chain is pure partition appends
-    (`Table.append_range`) keeps the device column stack and *grows* it in
-    place: the new partition columns are written into the stack's
-    reserved bucket slack (one O(delta) transfer, `stack_partitions`),
-    re-padding only when the bucket overflows; the cheap
-    host-side caches (codes, casts, projections) are dropped and rebuilt
-    lazily.  Any other version bump drops everything.  A table whose
-    *contents* changed without a version bump (out-of-band mutation of a
-    column array) is detected by a boundary fingerprint and raises — a
-    clear error instead of silently stale answers.
+    version first and folds the pending `Table.mutation_events`.  An
+    append keeps the device column stack and *grows* it in place: the new
+    partition columns are written into the stack's reserved bucket slack
+    (one O(delta) transfer, `stack_partitions`), re-padding only when the
+    bucket overflows.  A delete touches nothing (tombstoned rows still
+    evaluate; the planner filters them).  A compaction or a rebalance
+    rewrites the stack in its bucket (`_rewrite_stack`, counted in
+    ``stack_rewrites``).  The cheap host-side caches (codes, casts,
+    projections) are dropped and rebuilt lazily.  A chain that
+    `data.table.events_foldable` refuses, or an unlogged bump, drops
+    everything.  A table whose *contents* changed without a version bump
+    (out-of-band mutation of a column array) is detected by a boundary
+    fingerprint and raises — a clear error instead of silently stale
+    answers.
     """
 
     def __init__(self, table: Table, *, options: ExecOptions | None = None):
@@ -272,6 +276,7 @@ class EvalCache:
         self.cast_builds = 0
         self.stack_appends = 0  # in-place slack writes (streaming appends)
         self.stack_rebuilds = 0  # full stack (re)builds incl. overflows
+        self.stack_rewrites = 0  # in-bucket rewrites (compaction/rebalance)
 
     # the fingerprint guard costs ~1-2 µs/column, so hot accessors only
     # re-verify every Nth sync; public batch entries
@@ -315,12 +320,15 @@ class EvalCache:
                 self._check_fingerprint_locked()
             return
         events = self.table.mutation_events(self._version)
-        appends = bool(events) and all(ev[0] == "append" for ev in events)
-        if appends:
+        foldable = events is not None and events_foldable(events)
+        if foldable and events and all(ev[0] == "append" for ev in events):
             # pure append chain: the PRE-append region must still match
             # our snapshot, or an out-of-band mutation hid behind the
             # append's version bump — the grown stack would serve stale
-            # data for the mutated rows
+            # data for the mutated rows.  (Chains with lifecycle events
+            # skip this check: a delete changes the fingerprint's
+            # tombstone component by design, and the refreshed
+            # fingerprint below re-arms the guard.)
             if self.table.fingerprint(events[0][1]) != self._fp:
                 raise StaleStateError(
                     f"table {self.table.name!r}: pre-append partitions "
@@ -332,28 +340,43 @@ class EvalCache:
         self._f64.clear()
         self._f32.clear()
         self._proj.clear()
-        if not appends:
-            # any other mutation (deletes, compaction, rebalancing, an
-            # unlogged bump) drops everything: the in-place folds of
-            # those events come with the lifecycle slice
+        if not foldable:
             self._posinf.clear()
             self._nonfinite.clear()
             self._stack = None
             self._stack_p = 0
         else:
-            start = events[0][1]  # partitions before the first append
-            # the non-finiteness flags route queries between backends:
-            # extend them with a delta-only scan
-            for col in list(self._posinf):
-                self._posinf[col] = self._posinf[col] or bool(
-                    np.isposinf(self.table.columns[col][start:]).any()
-                )
-            for col in list(self._nonfinite):
-                self._nonfinite[col] = self._nonfinite[col] or not bool(
-                    np.isfinite(self.table.columns[col][start:]).all()
-                )
-            if self._stack is not None:
-                self._grow_stack()
+            covered = None  # final-P coverage once an append fold ran
+            for ev in events:
+                if ev[0] == "delete":
+                    # tombstones only: columns, flags and the stack stand
+                    continue
+                if ev[0] == "compact":
+                    # survivors may lose the rows that made a column
+                    # non-finite: the routing flags recompute lazily
+                    self._posinf.clear()
+                    self._nonfinite.clear()
+                    self._rewrite_stack()
+                elif ev[0] == "rebalance":
+                    # flags are permutation-invariant; the stack is not
+                    self._rewrite_stack()
+                else:  # append
+                    start = ev[1]
+                    if covered is not None and start < covered:
+                        continue  # an earlier fold already read past it
+                    # the non-finiteness flags route queries between
+                    # backends: extend them with a delta-only scan
+                    for col in list(self._posinf):
+                        self._posinf[col] = self._posinf[col] or bool(
+                            np.isposinf(self.table.columns[col][start:]).any()
+                        )
+                    for col in list(self._nonfinite):
+                        self._nonfinite[col] = self._nonfinite[col] or not bool(
+                            np.isfinite(self.table.columns[col][start:]).all()
+                        )
+                    if self._stack is not None:
+                        self._grow_stack()
+                    covered = self.table.num_partitions
         self._version = self.table.version
         self._fp = self.table.fingerprint()
         self._fp_tick = 0
@@ -448,6 +471,31 @@ class EvalCache:
         self._stack_p = n
         self.stack_appends += 1
 
+    def _rewrite_stack(self) -> None:
+        """Rewrite the device stack in place after a compaction or a
+        rebalance: one write of the reorganized host columns through
+        `_write_stack` (the path appends use), zero-filling the now-dead
+        tail — the ones column included, so a padded slot never adds a
+        count.  The stack keeps its shape bucket, so no launch key changes;
+        only a table that grew past the bucket drops the stack for a re-pad
+        on next access."""
+        if self._stack is None:
+            return
+        n = self.table.num_partitions
+        if n > self._stack.shape[1]:
+            self._stack = None
+            self._stack_p = 0
+            return
+        cover = max(self._stack_p, n)  # stale tail to zero out
+        host = self._host_stack(0, n)
+        if cover > n:
+            pad = np.zeros((host.shape[0], cover - n, host.shape[2]), np.float32)
+            host = np.concatenate([host, pad], axis=1)
+        with record_function("lifecycle.stack_rewrite"):
+            self._write_stack(host, 0)
+        self._stack_p = n
+        self.stack_rewrites += 1
+
     def device_stack(self) -> torch.Tensor:
         """(n_cols+1, P_bucket, R) float32 column stack on ``options.device``.
 
@@ -521,11 +569,15 @@ class AnswerStore:
     only the appended partitions are evaluated (one stacked pass over a
     delta view of the table, counted in ``delta_evals``) and merged into
     each entry's (N, G, n_raw) raw tensor (``carried``), bit-identical to
-    a cold evaluation of the grown table.  The store drops everything
-    when the version chain holds any other mutation (the lifecycle folds
-    come with the lifecycle slice), or when an append brings non-finite
-    values on the device backend (they flip per-query host-fallback
-    routing, which would mix fold orders).
+    a cold evaluation of the grown table.
+
+    **Lifecycle events.**  A delete leaves every entry valid (tombstoned
+    rows are filtered at the planner).  A compaction or a rebalance
+    gathers each full entry's raw tensor by the event's index map
+    (`_fold_move`).  The store drops everything when the chain is one
+    that `data.table.events_foldable` refuses or an unlogged bump, or
+    when an append brings non-finite values on the device backend (they
+    flip per-query host-fallback routing, which would mix fold orders).
 
     **Partial answers (planner escalation rounds).**  `get_subset`
     evaluates one query over an explicit partition-id subset and caches
@@ -534,7 +586,8 @@ class AnswerStore:
     alone, so without the subset half of the key an escalation round's
     partial answer could be served where the full answer (or a larger
     round's) is expected.  Partial entries are row-local too: they
-    survive pure appends (their partition ids stay valid).
+    survive appends and deletes (their partition ids stay valid) and drop
+    on a compaction or a rebalance.
 
     ``ttl`` (seconds on ``clock``, default `time.monotonic`) bounds how long
     an entry may serve; an expired entry is re-evaluated on access and
@@ -591,27 +644,59 @@ class AnswerStore:
 
     def _sync(self) -> None:
         # raises on out-of-band mutation (fingerprint, forced at this
-        # batch boundary) and grows or drops the device stack — even on an
-        # all-hits batch that never touches the eval cache
+        # batch boundary) and grows, rewrites or drops the device stack —
+        # even on an all-hits batch that never touches the eval cache
         self._eval_cache._sync()
         self._eval_cache.check_fingerprint()
         if self.table.version == self._version:
             return
         events = self.table.mutation_events(self._version)
-        appends = (
-            bool(events)
-            and all(ev[0] == "append" for ev in events)
-            and self._delta_backend_safe(events[0][1])
+        foldable = events is not None and events_foldable(events) and all(
+            self._delta_backend_safe(ev[1]) for ev in events if ev[0] == "append"
         )
-        if not appends:
+        if not foldable:
             self._cache.clear()
             self._partial.clear()
             self._born.clear()
             self._partial_born.clear()
-        # after pure appends the entries are merged lazily on access: each
-        # entry's raw partition count records where its delta starts
+        else:
+            for ev in events:
+                # a delete leaves every raw row valid (tombstones filter at
+                # the planner); an append merges lazily on access, where
+                # each entry's raw partition count says where its delta
+                # starts
+                if ev[0] in ("compact", "rebalance"):
+                    self._fold_move(ev)
         self._version = self.table.version
         self._delta_caches.clear()  # delta views are per-version snapshots
+
+    def _fold_move(self, ev: tuple) -> None:
+        """Fold a compaction or a rebalance into the held answers: each
+        full entry's raw tensor is gathered by the event's index map, and a
+        compaction also re-filters the occupied groups (a group whose only
+        mass lived in dropped partitions disappears, as `_answers_from_raw`
+        decides on the reorganized table).  Entries stale from an append
+        across the move, and every partial answer, are dropped: their
+        partition ids no longer name the same data."""
+        idx = np.asarray(ev[1], dtype=np.int64)
+        parts_before = ev[2]
+        kept: dict[str, PartitionAnswers] = {}
+        for key, ans in self._cache.items():
+            if ans.raw.shape[0] != parts_before:
+                continue
+            raw = ans.raw[idx]
+            if ev[0] == "compact":
+                # integer counts in float64: the occupancy sum is exact
+                occ = np.flatnonzero(raw[:, :, 0].sum(axis=0) > 0)
+                kept[key] = PartitionAnswers(ans.query, ans.group_keys[occ], raw[:, occ, :],
+                                             ans.plans)
+            else:
+                kept[key] = PartitionAnswers(ans.query, ans.group_keys, raw, ans.plans)
+        for key in set(self._cache) - set(kept):
+            self._born.pop(key, None)
+        self._cache = kept
+        self._partial.clear()
+        self._partial_born.clear()
 
     def _expired(self, born: float | None) -> bool:
         if self.ttl is None or born is None:

@@ -720,3 +720,60 @@ def test_frontdoor_pump_on_cuda_resolves_every_ticket(cuda):
     assert sorted(results) == [0, 1, 2, 3]
     assert fd.serve_stats()["completed"] == 4
     assert _build.LAUNCHES.counts().get(("fused_eval",), 0) > 0
+
+
+def test_lifecycle_stack_rewrite_on_cuda(cuda):
+    """A compaction and a rebalance rewrite the card's column stack in its
+    shape bucket (``stack_rewrites`` counts 2, the dead tail is zero), and
+    full-table answers over it are bit-equal to a cold `EvalCache`'s."""
+    from repro_torch import lifecycle
+
+    opts = ExecOptions(device=str(cuda))
+    table = make_dataset("tpch", num_partitions=24, rows_per_partition=1024, seed=2)
+    lifecycle.ensure_directory(table)
+    queries = WorkloadSpec(table, seed=4).sample_workload(6)
+    store = AnswerStore(table, options=opts)
+    store.get_batch(queries)
+    cache = store._eval_cache
+    stack = cache.device_stack()
+    lifecycle.delete_partitions(table, [1, 7, 8, 20])
+    lifecycle.compact(table)
+    store.get_batch(queries)  # the compaction folds before the rebalance
+    lifecycle.rebalance(table, lifecycle.rebalance_plan(table, 4))
+    _build.LAUNCHES.reset()
+    got = store.get_batch(queries)
+    assert store.misses == len(queries)  # every answer folded, none evaluated
+    assert cache.stack_rewrites == 2 and cache.stack_rebuilds == 1
+    assert cache.device_stack() is stack and stack.shape[1] == 32
+    assert not stack[:, table.num_partitions:].any()
+    cold_cache = EvalCache(table, options=opts)
+    fresh = per_partition_answers_batch(table, queries, cache=cold_cache, options=opts)
+    full = per_partition_answers_batch(table, queries, cache=cache, options=opts)
+    for g, f, w in zip(got, full, fresh):
+        np.testing.assert_array_equal(g.group_keys, w.group_keys)
+        np.testing.assert_array_equal(g.raw.view(np.uint64), w.raw.view(np.uint64))
+        np.testing.assert_array_equal(f.raw.view(np.uint64), w.raw.view(np.uint64))
+    assert _build.LAUNCHES.counts().get(("fused_eval",), 0) > 0
+
+
+def test_save_and_restore_on_cuda(cuda, tmp_path):
+    """A snapshot restored on default options rebuilds the stack on the
+    card and answers as the saved session."""
+    from repro_torch import api
+
+    sess = _tiny_session(api.ExecOptions())
+    queries = WorkloadSpec(sess.table, seed=7).sample_workload(4)
+    want = [sess.execute(api.QuerySpec(q, error_bound=0.05)) for q in queries]
+    sess.save(str(tmp_path / "snap"))
+    back = api.Session.restore(str(tmp_path / "snap"))
+    assert back.options.device == "cuda"
+    got = [back.execute(api.QuerySpec(q, budget=w.partitions_read))
+           for q, w in zip(queries, want)]
+    again = [sess.execute(api.QuerySpec(q, budget=w.partitions_read))
+             for q, w in zip(queries, want)]
+    for g, a in zip(got, again):
+        assert g.partitions_read == a.partitions_read
+        np.testing.assert_array_equal(g.group_keys, a.group_keys)
+        assert g.estimate.tobytes() == a.estimate.tobytes()
+        assert g.ci_halfwidth.tobytes() == a.ci_halfwidth.tobytes()
+    assert back.answers._eval_cache.device_stack().device.type == "cuda"

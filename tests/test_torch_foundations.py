@@ -133,7 +133,7 @@ def test_port_imports_neither_jax_nor_reference():
     names = set(out.stdout.split())
     assert len(names) >= 30  # every module of the port was imported
     assert {"repro_torch.faults", "repro_torch.serving.engine", "repro_torch.serving.frontdoor",
-            "repro_torch.core.baselines"} <= names
+            "repro_torch.core.baselines", "repro_torch.lifecycle", "repro_torch.wal"} <= names
 
 
 def test_port_sources_import_neither_jax_nor_reference():
