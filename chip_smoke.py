@@ -32,7 +32,9 @@ Phases, each fatal on failure:
 4. the offline plane (slice 1's path) on the first ``--offline-partitions``
    partitions: ``build_sketches`` and ``per_partition_answers_batch`` on
    the default options, every one of its kernels launched, held against
-   the port's host backend;
+   the port's host backend; then both again on ``ExecOptions(mesh=1)``
+   and on a plane of 3 logical shards of the card, bit-equal to the
+   single-device run;
 5. the Session path at full size: ``Session(table).prepare(WorkloadSpec
    (table), num_train_queries=48)`` with the default ``PickerConfig``,
    then ``Session.execute(QuerySpec(q, error_bound=0.05))`` on held-out
@@ -43,21 +45,37 @@ Phases, each fatal on failure:
    and on the host: the forests must be bit-equal; and tree_hist on
    those binned training codes at level 0 and at the leaf sums of the
    trained first tree, against its plain version;
-7. the streaming append path on the same prepared Session: the training
+7. the partition data plane on 3 logical shards of the card
+   (``PartitionPlane(("cuda:0",) * 3)``: the 1024-partition stack pads to
+   1026 slots, 342 a shard), every check bit-equal to the single device:
+   ``[plane]`` ingest (``build_statistics``), the training answers (and
+   their launch keys at the local size, as many as the single-device
+   census), the held-out executes through an ``AnswerStore`` on the plane
+   (equal to phase 5's byte for byte; each 16-partition chunk read on
+   6 + 6 + 6 slots), and on a copy of the table two appends, the first
+   overflowing into a re-pad at 2049 slots, the second written into the
+   slack (folded answers against a cold single-device evaluation,
+   ``delta_statistics``); where more than one CUDA device is visible, the
+   answers and executes again on all of them.  ``plane_launches`` counts
+   only the plane's own calls (the counts are set to 0 just before each
+   and read just after; the single-device references run outside), and
+   each plane kernel's count must be a multiple of the plane's shards;
+8. the streaming append path on the same prepared Session: the training
    answers cached, a warm-up append that overflows the device stack's
-   partition bucket, then six appends of ``--partitions`` / 64 partitions
-   each folded into the sketches and every cached answer (profiled),
-   held-out executes on the grown table, ``predicate_mask_device`` against
-   the host mask for every held-out query, and a cold rebuild of sketches
-   and answers that the folded ones must equal bit for bit;
-8. the serving path on the same Session over the grown table:
+   partition bucket, then ``APPENDS`` (3) appends of ``--partitions`` / 64
+   partitions each folded into the sketches and every cached answer
+   (profiled), held-out executes on the grown table,
+   ``predicate_mask_device`` against the host mask for every held-out
+   query, and a cold rebuild of sketches and answers that the folded ones
+   must equal bit for bit;
+9. the serving path on the same Session over the grown table:
    ``[batch]`` a ``BatchPicker`` over the Session's picker
    answers the held-out queries at a 5% budget, cold and warm (selections
    equal to the single-query ``pick``, no new KMeans key on the warm
-   pass); ``[faults]`` a second route on ``ExecOptions(faults=GATE)``, its
-   own ``Session(table)``, executes them at the 5% bound (coverage ≥ 0.9
-   with failed reads, ``degraded`` reported exactly, no launch key beyond
-   the fault-free executes'); ``[serve]`` a ``FrontDoor`` on a
+   pass); ``[faults]`` a second route on ``ExecOptions(faults=GATE)``,
+   sharing the Session's sketch store, executes them at the 5% bound
+   (coverage ≥ 0.9 with failed reads, ``degraded`` reported exactly, no
+   launch key beyond the fault-free executes'); ``[serve]`` a ``FrontDoor`` on a
    ``VirtualClock`` over a route whose every read fails and the card
    Session (every ticket resolves, fault-free answers bit-equal to direct
    executes, the breaker opens, a burst sheds only at the top of the
@@ -65,7 +83,7 @@ Phases, each fatal on failure:
    on new queries from two submitter threads; ``[relaxed]`` phase 6's
    trees refitted with ``parity_relaxation`` on the card, within the
    reference's tolerances of the host forest;
-9. the lifecycle path on the same Session over the grown table:
+10. the lifecycle path on the same Session over the grown table:
    ``[lifecycle]`` ``Session.save`` to a fresh temporary directory with a
    ``WriteAheadLog`` beside it, then through the WAL a soft delete of 5%
    of the live partitions (chosen by ``--seed``), a compaction, a
@@ -81,14 +99,14 @@ Phases, each fatal on failure:
    ``EvalCache``'s; ``[wal]`` a delete that crashes at ``wal.apply``,
    ``wal.recover`` of the directory against ``replay`` on the live table
    (tables, sketches, answers and executes equal);
-10. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
-   Each kernel's ``session_launches``, ``stream_launches``,
-   ``serve_launches`` and ``lifecycle_launches`` count its launches in
-   the Session, streaming, serving and lifecycle paths, and ``launches``
-   is their sum.
+11. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
+   Each kernel's ``session_launches``, ``plane_launches``,
+   ``stream_launches``, ``serve_launches`` and ``lifecycle_launches``
+   count its launches in the Session, plane, streaming, serving and
+   lifecycle paths, and ``launches`` is their sum.
 
-The whole run takes 17 to 18 minutes (1025 to 1062 s on an H100 80GB
-HBM3 at a 700 W power limit), phases 8 and 9 about 240 to 270 s each.
+A ``[time] phase N <name> <s>`` line follows every phase; ``[reduced]``
+lines list what was cut to keep the run inside its time limit.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -128,8 +146,16 @@ SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
 OFFLINE_KERNELS = ("fused_eval", "group_aggregate", "moments", "histogram_range", "bincount")
 SESSION_KERNELS = tuple(k for k in SOURCES if k != "predicate_eval")
 STREAM_KERNELS = ("fused_eval", "moments", "histogram_range", "bincount", "predicate_eval")
-APPENDS = 6  # timed appends of the streaming phase, after the warm-up one
+APPENDS = 3  # timed appends of the streaming phase, after the warm-up one
 ROUNDS = 5  # timed rounds of every kernel case; the median is recorded
+PLANE_SHARDS = 3  # logical shards of phase 7: 1024 slots would never pad on 2 or 4
+# depth cut so that the run stays inside its time limit (no check dropped)
+CUTS = (
+    "phase 9 [faults]: the faulted route shares the Session's sketch store instead of "
+    "building its own Session(table) (ExecOptions.faults gates only the planner's chunk "
+    "reads and AnswerStore's exact reads)",
+    f"phase 8 [stream]: {APPENDS} timed appends after the warm-up append (6 before)",
+)
 
 
 def append_size(partitions: int) -> int:
@@ -321,7 +347,7 @@ def group_aggregate_stress(values, mask, codes, radix, seed: int) -> list[Case]:
     ]
 
 
-def fused_eval_case(args, shape, record=True) -> Case:
+def fused_eval_case(args, shape, record=True, check=None) -> Case:
     """fused_eval on these operands.  Bytes: clause columns and descriptors
     for every row, values and codes only for the rows that pass; ops: two
     compares a clause, V adds a pass."""
@@ -334,7 +360,7 @@ def fused_eval_case(args, shape, record=True) -> Case:
     nbytes = (sum(t.numel() * 4 for t in (xs, lo, hi, gmap)) + passing * (v + 1) * 4
               + b * v * radix * 4)
     return Case("fused_eval", fused.fused_eval, fused.fused_eval_plain, args, "sums", nbytes,
-                2 * xs.numel() + passing * v, None, shape, record)
+                2 * xs.numel() + passing * v, None, shape, record, check)
 
 
 def chunk_read_case(table, held_out, dev) -> Case:
@@ -373,6 +399,33 @@ def same_rows(name: str, full, rows: int = 16):
         if not torch.equal(out.view(torch.int32), full[:rows].view(torch.int32)):
             raise AssertionError(f"{name}: {rows} rows alone differ from the full launch")
         return f"{rows} rows alone bit-equal to the {full.shape[0]}-row launch"
+    return check
+
+
+def shard_rows(args, p: int, shard: int = 1, shards: int = PLANE_SHARDS):
+    """The operands of the stack rows shard ``shard`` of a ``shards``-shard
+    plane launches: partitions [shard·L, (shard + 1)·L) of each stacked
+    query of a ``p``-partition stack (L = P padded to a multiple of
+    ``shards``, over ``shards``) → (operands, their rows in the full launch)."""
+    import torch
+
+    local = -(-p // shards)
+    lo, hi = shard * local, min((shard + 1) * local, p)
+    dev = args[0].device
+    idx = torch.cat([torch.arange(i * p + lo, i * p + hi, device=dev)
+                     for i in range(args[0].shape[0] // p)])
+    return tuple(a.index_select(0, idx).contiguous() if torch.is_tensor(a) else a
+                 for a in args), idx
+
+
+def shard_check(name: str, full, idx):
+    """Check of a shard's launch: the bits the full launch gives its rows."""
+    import torch
+
+    def check(out):
+        if not torch.equal(out.view(torch.int32), full.index_select(0, idx).view(torch.int32)):
+            raise AssertionError(f"{name}: a plane shard's rows differ from the full launch")
+        return f"a plane shard's {idx.numel()} rows bit-equal to the {full.shape[0]}-row launch"
     return check
 
 
@@ -468,7 +521,7 @@ def kernel_cases(table, queries, held_out, dev) -> list[Case]:
     import torch
 
     from repro_torch.backends import ExecOptions
-    from repro_torch.kernels import histogram, moments, predicate
+    from repro_torch.kernels import fused, groupagg, histogram, moments, predicate
     from repro_torch.queries import device
     from repro_torch.queries.engine import EvalCache
 
@@ -526,13 +579,21 @@ def kernel_cases(table, queries, held_out, dev) -> list[Case]:
         name, args = device.kernel_call([pl for _, pl in chunk], cache)
         radix = args[-1]
         shape = "x".join(str(s) for s in args[0].shape) + f", radix {radix}"
+        part, idx = shard_rows(args, cache.device_stack().shape[1])
+        part_shape = ("x".join(str(s) for s in part[0].shape) + f", radix {radix}, shard 1 of "
+                      f"the {PLANE_SHARDS}-shard plane")
         if name == "group_aggregate":
             values, mask, codes_c, _ = args
             cases.append(group_aggregate_case(values, mask, codes_c, radix, shape))
             cases += group_aggregate_stress(values, mask, codes_c, radix, seed=len(cases))
+            cases.append(group_aggregate_case(
+                *part, part_shape, record=False,
+                check=shard_check(name, groupagg.group_aggregate(*args), idx)))
             continue
         cases.append(fused_eval_case(args, shape))
         cases.append(chunk_read_case(table, held_out, dev))
+        cases.append(fused_eval_case(part, part_shape, record=False,
+                                     check=shard_check(name, fused.fused_eval(*args), idx)))
 
     canon = max((device.canonicalize_predicate(table, q.predicate, cache) for q in queries),
                 key=lambda c: -1 if c is None else len(c.cols))
@@ -1006,6 +1067,20 @@ def offline_path(full, queries, args) -> None:
     if not all(np.isfinite(ans.raw).all() for ans in answers):
         raise AssertionError("non-finite per-partition answer")
 
+    # the degenerate plane (one shard) and the logical 3-shard plane: the
+    # same sketches and answers, bit for bit
+    t = time.perf_counter()
+    for mesh in (1, logical_plane(opts.torch_device())):
+        o = opts.replace(mesh=mesh)
+        check_sketches_bits(build_sketches(table, options=o), sk)
+        cache_p = EvalCache(table, options=o)
+        check_answers_bits(per_partition_answers_batch(table, queries, cache=cache_p, options=o),
+                           answers)
+    print(f"[plane] offline plane on ExecOptions(mesh=1) and on {PLANE_SHARDS} logical shards "
+          f"({p} -> {cache_p.device_stack().shape[1]} slots): every sketch field and "
+          f"{len(queries)} answers bit-equal to the single-device run; "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
 
 # --------------------------------------------------------------------------
 # phase 5: the Session path
@@ -1125,7 +1200,269 @@ def report_answers(sess, table, planned, walls, held_out, args) -> None:
 
 
 # --------------------------------------------------------------------------
-# phase 7: the streaming append path on the prepared Session
+# phase 7: the partition data plane, on logical shards of the card
+# --------------------------------------------------------------------------
+PLANE_KERNELS = ("fused_eval", "group_aggregate", "moments", "histogram_range", "bincount")
+
+
+class PlaneLaunches:
+    """The launches of the plane's own calls, and only theirs: each call
+    runs with every count set to 0 just before it and read just after, so
+    the single-device references between them count nowhere.  A plane
+    kernel launches once a shard, so its count in a call that is not a
+    multiple of the plane's shards raises."""
+
+    def __init__(self):
+        self.total: dict[str, int] = {}
+
+    def __call__(self, plane, fn, *args, **kwargs):
+        from repro_torch.kernels import _build
+
+        _build.LAUNCHES.reset()
+        out = fn(*args, **kwargs)
+        counts = {k[0]: n for k, n in _build.LAUNCHES.counts().items()}
+        odd = {k: n for k, n in counts.items()
+               if k in PLANE_KERNELS and n % plane.num_devices}
+        if odd:
+            raise AssertionError(f"[plane] {getattr(fn, '__name__', fn)} launched {odd}: not "
+                                 f"once a shard of {plane.num_devices}")
+        for k, n in counts.items():
+            self.total[k] = self.total.get(k, 0) + n
+        return out
+
+
+def logical_plane(dev, shards: int = PLANE_SHARDS):
+    """``shards`` logical shards of one card: every split, pad, per-shard
+    launch, write across shards and gather of a plane of devices."""
+    from repro_torch.distributed.dataplane import PartitionPlane
+
+    return PartitionPlane((str(dev),) * shards)
+
+
+def check_stats_bits(got, want, what: str) -> None:
+    """Every tensor of `build_statistics` bit-equal (other values equal)."""
+    import numpy as np
+
+    for col, tensors in want.items():
+        if tensors.keys() != got[col].keys():
+            raise AssertionError(f"{what}: {col} has keys {sorted(got[col])}")
+        for key, w in tensors.items():
+            g = got[col][key]
+            if isinstance(w, np.ndarray):
+                if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+                    raise AssertionError(f"{what}: {col}.{key} differs")
+            elif g != w:
+                raise AssertionError(f"{what}: {col}.{key} {g!r} != {w!r}")
+
+
+def plane_ingest(table, opts, single, counted: PlaneLaunches) -> None:
+    """`[plane]` ingest: the full `build_statistics` on the plane, bit-equal
+    to the single device's."""
+    import torch
+
+    from repro_torch.core import ingest
+
+    plane = opts.plane()
+    t = time.perf_counter()
+    want = ingest.build_statistics(table, discrete_counts=True, options=single)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t
+    t = time.perf_counter()
+    got = counted(plane, ingest.build_statistics, table, discrete_counts=True, options=opts)
+    torch.cuda.synchronize()
+    t_plane = time.perf_counter() - t
+    check_stats_bits(got, want, "[plane] ingest")
+    p = table.num_partitions
+    print(f"[plane] ingest: build_statistics(discrete_counts=True) of {p}x"
+          f"{table.rows_per_partition} on {plane.num_devices} shards of {plane.local(p)} "
+          f"partitions ({plane.padded(p)} slots) {t_plane:.2f} s, single device {t_single:.2f} "
+          f"s; every tensor of {len(want)} columns bit-equal", flush=True)
+
+
+def plane_answers(table, queries, opts, single, counted: PlaneLaunches,
+                  tag: str = "[plane]") -> None:
+    """`[plane]` answers: the workload through `per_partition_answers_batch`
+    on a plane `EvalCache` against a fresh single-device one, bit-equal;
+    the plane's launch keys at the local stack size, as many as the
+    single-device census has."""
+    import torch
+
+    from repro_torch.queries import device
+    from repro_torch.queries.engine import EvalCache, per_partition_answers_batch
+
+    t = time.perf_counter()
+    want = per_partition_answers_batch(table, queries, options=single,
+                                       cache=EvalCache(table, options=single))
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t
+    census = device.workload_census(table, queries, EvalCache(table, options=single))
+    cache = EvalCache(table, options=opts)
+    device.TRACES.reset()
+    t = time.perf_counter()
+    got = counted(cache.plane, per_partition_answers_batch, table, queries, options=opts,
+                  cache=cache)
+    torch.cuda.synchronize()
+    t_plane = time.perf_counter() - t
+    keys = set(device.TRACES.counts())
+    check_answers_bits(got, want)
+    stack = cache.device_stack()
+    local = stack.local
+    if keys != device.workload_census(table, queries, cache):
+        raise AssertionError(f"{tag} launch keys {sorted(keys)} are not the plane's census")
+    if any(k[1] % local for k in keys):
+        raise AssertionError(f"{tag} a launch key is not at the local size {local}: {keys}")
+    if len(keys) != len(census):
+        raise AssertionError(f"{tag} {len(keys)} launch keys, the single-device census has "
+                             f"{len(census)}")
+    print(f"{tag} answers: {len(queries)} queries on {len(stack.shards)} shards of {local} "
+          f"partitions ({stack.shape[1]} slots) {t_plane:.2f} s, single device {t_single:.2f} "
+          f"s; group keys and raw tensors bit-equal; {len(keys)} launch keys at the local size, "
+          f"as many as the single-device census", flush=True)
+
+
+def plane_executes(sess, held_out, planned, opts, counted: PlaneLaunches,
+                   tag: str = "[plane]") -> None:
+    """`[plane]` executes: a planner over ``sess``'s picker and sketch store
+    with an `AnswerStore` on the plane; the held-out executes must equal
+    phase 5's byte for byte.  Each chunk read evaluates its 16 partitions
+    on the plane (6 + 6 + 6 slots on 3 shards, 2 of them pad)."""
+    import torch
+
+    from repro_torch.api import QuerySpec
+    from repro_torch.queries import device
+    from repro_torch.queries.engine import stack_partitions
+
+    plane = opts.plane()
+    route = grafted_session(sess, opts, share_sketches=True)
+    chunk_local = plane.local(stack_partitions(sess.planner_config.chunk))
+    full_local = plane.local(stack_partitions(sess.table.num_partitions))
+    device.TRACES.reset()
+    got, walls = [], []
+    for q in held_out:
+        t = time.perf_counter()
+        got.append(counted(plane, route.execute, QuerySpec(q, error_bound=ERROR_BOUND)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    check_same_planned(got, planned, f"{tag} executes")
+    rows = sorted({k[1] for k in device.TRACES.counts()})
+    if min(rows) != chunk_local or any(r % chunk_local and r % full_local for r in rows):
+        raise AssertionError(f"{tag} chunk reads launched {rows} rows, not at the local "
+                             f"{chunk_local} (or {full_local})")
+    print(f"{tag} executes: {len(held_out)} at error_bound {ERROR_BOUND} through an AnswerStore "
+          f"on {plane.num_devices} shards, p50 {sorted(walls)[len(walls) // 2]:.3f} s; "
+          f"estimates, group keys, CI halfwidths and partitions read equal to phase 5's byte for "
+          f"byte; chunk reads of {sess.planner_config.chunk} partitions launched at {chunk_local} "
+          f"a shard ({plane.padded(stack_partitions(sess.planner_config.chunk))} slots); launch "
+          f"rows {rows}", flush=True)
+
+
+def plane_appends(sess, train_queries, held_out, opts, single, counted: PlaneLaunches,
+                  args) -> None:
+    """`[plane]` appends, on a deep copy of the table (later phases see it
+    unchanged): an `AnswerStore` on the plane with the training answers
+    cached, an append that overflows the plane's stack into a re-pad, then
+    one written into the slack.  After each the folded answers must equal a
+    cold single-device evaluation and `delta_statistics` on the plane the
+    single device's, bit for bit."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import ingest
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.table import append_partitions
+    from repro_torch.queries.engine import AnswerStore, EvalCache, per_partition_answers_batch
+
+    table = copy.deepcopy(sess.table)
+    everything = list(train_queries) + list(held_out)
+    store = AnswerStore(table, options=opts)
+    cache = store._eval_cache
+    plane = store.plane
+    t = time.perf_counter()
+    counted(plane, store.get_batch, train_queries)
+    torch.cuda.synchronize()
+    before = cache.device_stack().shape[1]
+    print(f"[plane] appends: {len(train_queries)} answers cached on the plane in "
+          f"{time.perf_counter() - t:.2f} s; the stack holds {before} slots", flush=True)
+    kinds = []
+    for i, seed in enumerate((100, 101)):
+        start = table.num_partitions
+        counts = (cache.stack_rebuilds, cache.stack_appends)
+        slots = cache.device_stack().shape[1]
+        delta = make_dataset("tpch", num_partitions=append_size(args.partitions),
+                             rows_per_partition=table.rows_per_partition, layout="random",
+                             seed=seed)
+        t = time.perf_counter()
+        append_partitions(table, delta.columns)
+        got = counted(plane, store.get_batch, everything)
+        torch.cuda.synchronize()
+        t_fold = time.perf_counter() - t
+        stack = cache.device_stack()
+        t = time.perf_counter()
+        cold = per_partition_answers_batch(table, everything, options=single,
+                                           cache=EvalCache(table, options=single))
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t
+        check_answers_bits(got, cold)
+        check_stats_bits(counted(plane, ingest.delta_statistics, table, start,
+                                 discrete_counts=True, options=opts),
+                         ingest.delta_statistics(table, start, discrete_counts=True,
+                                                 options=single), "[plane] delta_statistics")
+        # past the slots: one re-pad (and re-shard); else one write into the slack
+        kinds.append("re-pad" if table.num_partitions > slots else "in-slack append")
+        want = (counts[0] + 1, counts[1]) if kinds[-1] == "re-pad" else (counts[0], counts[1] + 1)
+        if (cache.stack_rebuilds, cache.stack_appends) != want:
+            raise AssertionError(f"[plane] append {i + 1}: stack_rebuilds "
+                                 f"{cache.stack_rebuilds}, stack_appends {cache.stack_appends}, "
+                                 f"expected {want} ({kinds[-1]})")
+        print(f"[plane] append {i + 1} (seed {seed}): {start} -> {table.num_partitions} "
+              f"partitions, fold of {len(everything)} answers ({len(held_out)} misses) "
+              f"{t_fold:.2f} s, cold single-device {t_cold:.2f} s; stack {stack.shape[1]} slots, "
+              f"{stack.local} a shard; stack_rebuilds {cache.stack_rebuilds} stack_appends "
+              f"{cache.stack_appends} ({kinds[-1]}); answers and delta_statistics bit-equal",
+              flush=True)
+    if args.partitions == 1024 and kinds != ["re-pad", "in-slack append"]:
+        raise AssertionError(f"[plane] the appends took {kinds}, not a re-pad then an append")
+
+
+def plane_path(sess, train_queries, held_out, planned, args) -> dict:
+    """Phase 7 → the launches of the plane's own calls (`PlaneLaunches`)."""
+    import torch
+
+    single = sess.options.replace(mesh=None)
+    opts = single.replace(mesh=logical_plane(single.torch_device()))
+    counted = PlaneLaunches()
+    plane_ingest(sess.table, opts, single, counted)
+    plane_answers(sess.table, train_queries, opts, single, counted)
+    plane_executes(sess, held_out, planned, opts, counted)
+    plane_appends(sess, train_queries, held_out, opts, single, counted, args)
+    if torch.cuda.device_count() >= 2:
+        saved = os.environ.get("REPRO_MESH")
+        os.environ["REPRO_MESH"] = "all"
+        try:
+            real = single.replace(mesh="auto")
+            tag = f"[plane] {real.plane().num_devices} devices:"
+            plane_answers(sess.table, train_queries, real, single, counted, tag)
+            plane_executes(sess, held_out, planned, real, counted, tag)
+        finally:
+            if saved is None:
+                os.environ.pop("REPRO_MESH")
+            else:
+                os.environ["REPRO_MESH"] = saved
+    else:
+        print("[plane] one CUDA device is visible: the plane ran as logical shards of it; "
+              "launches on separate devices were not run", flush=True)
+    torch.cuda.synchronize()
+    idle = [k for k in PLANE_KERNELS if counted.total.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"the plane never launched {idle}")
+    print(f"[plane] launches of the plane's own calls (each a multiple of its shards) "
+          f"{json.dumps(counted.total, sort_keys=True)}", flush=True)
+    return counted.total
+
+
+# --------------------------------------------------------------------------
+# phase 8: the streaming append path on the prepared Session
 # --------------------------------------------------------------------------
 SKETCH_FIELDS = ("measures", "hist_edges", "cat_counts", "ndv", "dv_freq", "hh_stats",
                  "hh_items", "global_hh", "bitmap", "discrete_span", "part_spans")
@@ -1310,7 +1647,7 @@ def stream_path(sess, train_queries, held_out, args) -> tuple[dict, frozenset]:
 
 
 # --------------------------------------------------------------------------
-# phase 8: the serving path on the prepared Session
+# phase 9: the serving path on the prepared Session
 # --------------------------------------------------------------------------
 SERVE_KERNELS = ("fused_eval", "pdist_sq", "tree_hist", "cumsum_seq", "moments",
                  "histogram_range", "bincount")
@@ -1322,14 +1659,31 @@ GATE = dict(seed=20240807, dead_frac=0.0125, fail_frac=0.05, timeout_frac=0.02,
 RELAXED_RTOL = dict(leaf=(1e-4, 1e-5), pred=(1e-4, 1e-4))  # `tests/test_gbdt_device.py`
 
 
-def grafted_session(sess, options):
+@contextlib.contextmanager
+def shared_sketch_store(store):
+    """Sessions built inside take ``store`` as their sketch store instead of
+    building one (a cold build of the table's sketches, 25 s at full size)."""
+    from repro_torch import api
+
+    saved = api.SketchStore
+    api.SketchStore = lambda table, options=None: store
+    try:
+        yield
+    finally:
+        api.SketchStore = saved
+
+
+def grafted_session(sess, options, share_sketches: bool = False):
     """A Session over ``sess``'s table on ``options`` with ``sess``'s trained
     picker, as `benchmarks/bench_serving_load._grafted_session` grafts one:
-    its own sketch store, answer store and planner."""
+    its own answer store and planner, and its own sketch store unless
+    ``share_sketches`` (then ``sess``'s)."""
     from repro_torch.api import Session
     from repro_torch.planner import QueryPlanner
 
-    route = Session(sess.table, options=options)
+    with (shared_sketch_store(sess.sketches) if share_sketches
+          else contextlib.nullcontext()):
+        route = Session(sess.table, options=options)
     route.picker = sess.picker
     route.planner = QueryPlanner(route.picker, route.answers, views=route.views,
                                  config=route.planner_config)
@@ -1399,7 +1753,10 @@ def faults_phase(sess, held_out, truth) -> None:
     torch.cuda.synchronize()
     clean_keys = set(device.TRACES.counts())
     t = time.perf_counter()
-    route = grafted_session(sess, sess.options.replace(faults=FaultPolicy(**GATE)))
+    # the route shares sess's sketch store: `ExecOptions.faults` gates only
+    # the planner's chunk reads and `AnswerStore`'s exact reads
+    route = grafted_session(sess, sess.options.replace(faults=FaultPolicy(**GATE)),
+                            share_sketches=True)
     torch.cuda.synchronize()
     t_route = time.perf_counter() - t
     device.TRACES.reset()
@@ -1430,8 +1787,8 @@ def faults_phase(sess, held_out, truth) -> None:
         raise AssertionError(f"faulted reads launched new keys {sorted(keys - clean_keys)}")
     read = np.array([a.partitions_read for a in planned], np.float64)
     print(f"[faults] route on FaultPolicy{json.dumps(GATE)}: Session(table) {t_route:.2f} s "
-          f"(its sketch store); {len(held_out)} executes at error_bound {ERROR_BOUND}: p50 "
-          f"{np.median(walls):.3f} s; partitions read mean {read.mean():.1f}; partitions failed "
+          f"(sharing the Session's sketch store); {len(held_out)} executes at error_bound "
+          f"{ERROR_BOUND}: p50 {np.median(walls):.3f} s; partitions read mean {read.mean():.1f}; partitions failed "
           f"{sum(failed)} over {sum(1 for f in failed if f)} answers; degraded "
           f"{stats['degraded_answers']} of {len(planned)}; coverage {coverage:.4f}; mean "
           f"avg_rel_err {rel.mean():.4f}", flush=True)
@@ -1640,7 +1997,7 @@ def serve_path(sess, held_out, fit, args) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 9: the lifecycle path on the prepared Session
+# phase 10: the lifecycle path on the prepared Session
 # --------------------------------------------------------------------------
 LIFECYCLE_KERNELS = ("fused_eval", "moments", "histogram_range", "bincount")
 DELETE_FRAC = 0.05  # soft-deleted share of the live partitions
@@ -1999,9 +2356,20 @@ def lifecycle_path(sess, held_out, stream_keys, args) -> dict:
     return launches
 
 
+class PhaseClock:
+    """Prints ``[time] phase N <name> <s>`` after each phase."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def done(self, n: int, name: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase {n} {name} {now - self.t:.2f}", flush=True)
+        self.t = now
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    import numpy as np
     import torch
 
     from repro_torch.data.datasets import make_dataset
@@ -2012,6 +2380,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    clock = PhaseClock()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: IEEE f32
     card = subprocess.run(
@@ -2025,10 +2394,13 @@ def main(argv=None) -> int:
     cuts = {k: getattr(args, k) for k, v in full.items() if getattr(args, k) != v}
     if cuts:
         print(f"[reduced] {json.dumps(cuts)} (full size: 1024 partitions x 16384 rows, "
-              "48 training and 16 held-out queries, 6 appends of 16 partitions)", flush=True)
+              "48 training and 16 held-out queries)", flush=True)
     print(f"[reduced] the offline plane runs on the first {args.offline_partitions} "
-          f"partitions; the Session and streaming paths drive their kernels at full size",
-          flush=True)
+          f"partitions; the Session, plane and streaming paths drive their kernels at full "
+          f"size", flush=True)
+    for cut in CUTS:
+        print(f"[reduced] {cut}", flush=True)
+    clock.done(1, "card")
 
     t = time.perf_counter()
     logs = _build.build_all()
@@ -2047,32 +2419,46 @@ def main(argv=None) -> int:
     print(f"[data] tpch {table.num_partitions}x{table.rows_per_partition} "
           f"({len(table.schema)} columns), {len(queries)} queries, feature dim {n_feat}, "
           f"in {time.perf_counter() - t:.2f} s", flush=True)
+    clock.done(2, "build")
 
     held_out = WorkloadSpec(table, seed=args.seed + 1).sample_workload(args.held_out)
     records = run_kernel_phase(
         kernel_cases(table, queries, held_out, dev)
         + picker_cases(args.queries * table.num_partitions, n_feat, table.num_partitions,
                        dev, args.seed))
+    clock.done(3, "kernels")
 
     offline_path(table, queries, args)
+    clock.done(4, "offline")
 
     sess, launches, walls, planned, held_out = session_path(table, args)
     report_answers(sess, table, planned, walls, held_out, args)
+    clock.done(5, "session")
 
     fit = check_forest(sess, table, args)
+    clock.done(6, "forest")
+
+    plane = plane_path(sess, queries, held_out, planned, args)
+    clock.done(7, "plane")
 
     stream, stream_keys = stream_path(sess, queries, held_out, args)
+    clock.done(8, "stream")
     serve = serve_path(sess, held_out, fit, args)
+    clock.done(9, "serve")
     life = lifecycle_path(sess, held_out, stream_keys, args)
+    clock.done(10, "lifecycle")
     for name, rec in records.items():
         rec["session_launches"] = launches.get(name, 0)
+        rec["plane_launches"] = plane.get(name, 0)
         rec["stream_launches"] = stream.get(name, 0)
         rec["serve_launches"] = serve.get(name, 0)
         rec["lifecycle_launches"] = life.get(name, 0)
-        rec["launches"] = (rec["session_launches"] + rec["stream_launches"]
-                           + rec["serve_launches"] + rec["lifecycle_launches"])
+        rec["launches"] = (rec["session_launches"] + rec["plane_launches"]
+                           + rec["stream_launches"] + rec["serve_launches"]
+                           + rec["lifecycle_launches"])
 
     print(json.dumps({"kernels": list(records.values())}), flush=True)
+    print(f"[time] total {time.perf_counter() - clock.t0:.2f}", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

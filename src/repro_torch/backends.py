@@ -12,14 +12,49 @@ Two backends with identical semantics:
 The default is the device backend on ``cuda``.  A ``cuda`` request on a
 machine without a usable CUDA device raises: the port never carries on
 on the CPU unless the caller asks for it with ``device="cpu"``.
+
+The device backend also takes a partition-axis plane of devices
+(``ExecOptions.mesh``, or the ``REPRO_MESH`` environment variable for the
+default ``"auto"``; resolved by `repro_torch.distributed.dataplane`):
+sketch construction and query evaluation then split the partition axis
+into one shard a device and launch each kernel once per shard.  Unset
+(or ``0``/``off``) means the single-device path; a 1-device plane is
+bit-identical to it.  The host backend ignores the plane.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
 BACKENDS = ("host", "device")
+
+
+def default_mesh_devices(device="cuda") -> int:
+    """Partition-plane device count from ``REPRO_MESH`` for the device
+    backend on ``device``.
+
+    ``""``/``"0"``/``"off"``/``"none"`` → 0 (no plane: the single-device
+    path); ``"auto"``/``"all"`` → every CUDA device (1 on a CPU device); an
+    integer n → n (on CUDA at most the visible devices; on the CPU, n
+    logical shards).
+    """
+    from repro_torch.distributed.dataplane import MESH_OFF
+
+    env = os.environ.get("REPRO_MESH", "").strip().lower()
+    if env in MESH_OFF:
+        return 0
+    cuda = torch.device(device).type == "cuda"
+    available = torch.cuda.device_count() if cuda else None
+    if env in ("auto", "all"):
+        return available if cuda else 1
+    n = int(env)
+    if n < 1:
+        raise ValueError(f"REPRO_MESH={n}: a plane needs at least one device")
+    if cuda and n > available:
+        raise ValueError(f"REPRO_MESH={n} but {available} device(s) are available")
+    return n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +79,14 @@ class ExecOptions:
         partition read through a deterministic seeded injector with
         retry, backoff and hedging; irrecoverable reads degrade the
         answer (planner) or raise `errors.PartitionReadError` (exact
-        paths).
+        paths);
+      * ``mesh`` — the partition-axis plane of the device backend:
+        ``"auto"`` (the ``REPRO_MESH`` policy, the default),
+        ``None``/``0``/``"off"`` (single device), an int device count
+        (counted from ``device``: ``cuda:1`` with 2 is ``cuda:1``,
+        ``cuda:2``; logical shards on the CPU), a device tuple (a repeated
+        device holds several logical shards), or a `PartitionPlane`.
+        ``device`` must be one of the plane's devices.
 
     Frozen and hashable: derive variants with `replace`.
     """
@@ -53,12 +95,15 @@ class ExecOptions:
     device: str = "cuda"
     parity_relaxation: bool = False
     faults: object = None  # repro_torch.faults.FaultPolicy | None
+    mesh: object = "auto"
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {self.backend!r}; expected one of {BACKENDS}"
             )
+        if isinstance(self.mesh, list):
+            object.__setattr__(self, "mesh", tuple(self.mesh))
 
     def torch_device(self) -> torch.device:
         """The resolved device; raises on a CUDA request without CUDA."""
@@ -69,6 +114,31 @@ class ExecOptions:
                 "pass device='cpu' to run the plain kernel versions"
             )
         return dev
+
+    def plane(self):
+        """The resolved `PartitionPlane` of the device backend, or None (the
+        single-device path, and always on the host backend).  ``"auto"``
+        reads ``REPRO_MESH`` at call time.  A plane that does not hold
+        ``device`` raises: the work the backend runs on ``device`` and the
+        plane's never quietly part."""
+        if self.backend != "device":
+            return None
+        from repro_torch.distributed import dataplane
+
+        plane = dataplane.resolve_plane(self.mesh, self.device)
+        if plane is None:
+            return None
+        if plane.device_type != torch.device(self.device).type:
+            raise ValueError(
+                f"ExecOptions(device={self.device!r}) with a plane on "
+                f"{plane.device_type} devices"
+            )
+        if dataplane.canonical_device(self.device) not in plane.devices:
+            raise ValueError(
+                f"ExecOptions(device={self.device!r}) is not a device of its plane "
+                f"{[str(d) for d in plane.devices]}"
+            )
+        return plane
 
     def replace(self, **changes) -> "ExecOptions":
         return dataclasses.replace(self, **changes)

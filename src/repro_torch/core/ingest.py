@@ -22,6 +22,14 @@ result bit-identically: the kernels read only the new partitions; the
 merge concatenates host arrays of all P.  `TRACES`
 counts the kernel passes per padded shape, so a stream of appends keeps
 a flat set of launch keys (the reference's compile census).
+
+**Partition plane.**  Under ``options.plane()``
+(`distributed/dataplane.py`) each column is zero-padded along P to a
+plane multiple and split into one shard a device; every counting kernel
+runs once per shard over its local partitions, and only the small (P, k)
+results are gathered, the pad sliced off.  Each partition is still
+folded by one kernel block, so the tensors are bit-identical to the
+single-device ones, and the launch keys are taken at local shapes.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from torch.profiler import record_function
 from repro_torch.backends import ExecOptions
 from repro_torch.core.clustering import bucket_size
 from repro_torch.data.table import NUMERIC, Table
+from repro_torch.distributed import dataplane
 from repro_torch.kernels import ops
 from repro_torch.kernels.telemetry import TraceRegistry
 
@@ -193,6 +202,42 @@ def _pad_partitions(arr: np.ndarray, target: int) -> np.ndarray:
     return np.pad(arr, widths)
 
 
+def _shards(plane, device, arr: np.ndarray, dtype) -> list[torch.Tensor]:
+    """One host→device transfer of a (P, ...) operand: whole on ``device``,
+    or zero-padded to a plane multiple and split one shard a device."""
+    host = np.ascontiguousarray(arr, dtype)
+    if plane is None:
+        return [torch.from_numpy(host).to(device)]
+    return list(plane.shard_partitions(host).shards)
+
+
+def _per_partition(plane, p: int, fn, *operands) -> np.ndarray:
+    """``fn`` on each shard's operands → the (p, k) host result in shard
+    order, the pad sliced off.  Every shard's launch is issued before the
+    first readback."""
+    if plane is None:
+        return fn(*(o[0] for o in operands)).cpu().numpy()[:p]
+    return plane.gather(dataplane.sharded_call(plane, fn, operands), p)
+
+
+def _moments(x):
+    TRACES.note("moments", *x.shape)
+    return ops.moments_op(x)
+
+
+def _hist(x, edges):
+    TRACES.note("hist", *x.shape, edges.shape[1])
+    return ops.histogram_range_op(x, edges)
+
+
+def _bincount(card: int):
+    def run(codes):
+        TRACES.note("bincount", *codes.shape, card)
+        return ops.bincount_op(codes, card)
+
+    return run
+
+
 def build_statistics(
     table: Table,
     discrete_counts: bool = False,
@@ -219,9 +264,14 @@ def build_statistics(
     what lets `merge_statistics` reassemble a bit-identical result.
     Delta passes also report the raw integer span of the delta rows
     ("discrete_range_span", None once a non-integral value arrived).
+
+    On a partition plane (``options.plane()``) the (padded) partitions are
+    further zero-padded to a plane multiple and every kernel runs once
+    per shard; the tensors are bit-identical to the single-device ones.
     """
     options = options if options is not None else ExecOptions()
     device = options.torch_device()
+    plane = options.plane()
     out: dict[str, dict] = {}
     lo_part, hi_part = partitions if partitions is not None else (0, table.num_partitions)
     p = hi_part - lo_part
@@ -231,24 +281,20 @@ def build_statistics(
     pb = bucket_size(p, minimum=1) if delta else p
     rows = table.rows_per_partition
 
-    def upload(arr: np.ndarray, dtype) -> torch.Tensor:
-        host = np.ascontiguousarray(_pad_partitions(arr, pb), dtype)
-        return torch.from_numpy(host).to(device)
+    def upload(arr: np.ndarray, dtype) -> list[torch.Tensor]:
+        return _shards(plane, device, _pad_partitions(arr, pb), dtype)
 
     for spec in table.schema:
         data = table.columns[spec.name][lo_part:hi_part]
         if spec.kind == NUMERIC:
             # ships once, feeds both counting kernels
             x = upload(data, np.float32)
-            TRACES.note("moments", *x.shape)
-            mom = ops.moments_op(x).cpu().numpy()[:p]
+            mom = _per_partition(plane, p, _moments, x)
             with record_function("ingest.quantile"):
                 edges = np.quantile(
                     data.astype(np.float64), np.linspace(0, 1, 11), axis=1
                 ).T
-            e32 = upload(edges, np.float32)
-            TRACES.note("hist", *x.shape, e32.shape[1])
-            hist = ops.histogram_range_op(x, e32).cpu().numpy()[:p]
+            hist = _per_partition(plane, p, _hist, x, upload(edges, np.float32))
             out[spec.name] = {
                 "measures": measures_from_moments(mom, rows, spec.positive),
                 "hist_edges": edges,
@@ -266,14 +312,12 @@ def build_statistics(
                     # the observed width varies with each delta's data:
                     # bucket it too (pad bins receive no codes)
                     wb = bucket_size(width, minimum=1) if delta else width
-                    TRACES.note("bincount", *codes.shape, wb)
-                    counts = ops.bincount_op(codes, wb).cpu().numpy()[:p, :width]
+                    counts = _per_partition(plane, p, _bincount(wb), codes)[:, :width]
                     out[spec.name]["discrete_counts"] = counts.astype(np.float64)
                     out[spec.name]["discrete_lo"] = lo
         else:
             codes = upload(data, np.int32)
-            TRACES.note("bincount", *codes.shape, spec.cardinality)
-            counts = ops.bincount_op(codes, spec.cardinality).cpu().numpy()[:p]
+            counts = _per_partition(plane, p, _bincount(spec.cardinality), codes)
             out[spec.name] = {"counts": counts.astype(np.float64)}
     return out
 

@@ -331,6 +331,9 @@ def build_sketches(
     of integer counts is exact), measures agree to float32 rounding.
     AKMV and equi-depth edge *placement* stay on the host in both modes
     (53-bit hashes and a sort; see `_akmv`).  This is the cold build — O(P).
+    On a partition plane (``options.mesh``) the ingest kernels run once per
+    shard (`core.ingest.build_statistics`); the sketches are bit-identical
+    to the single-device ones.
     """
     options = options if options is not None else ExecOptions()
     backend = options.backend
@@ -425,7 +428,8 @@ def update_sketches(
         recomputed from the merged exact counts (O(P·card), no row reads).
 
     The result is bit-identical to `build_sketches` of the grown table on
-    the same backend.  Returns a new `TableSketches`; ``sk`` is not mutated.
+    the same backend and plane (``options.mesh``: the delta's kernels run
+    once per shard).  Returns a new `TableSketches`; ``sk`` is not mutated.
     """
     options = options if options is not None else ExecOptions()
     backend = options.backend
@@ -601,15 +605,20 @@ class SketchStore:
     filter by `Table.live_mask`).  Only a chain that
     `data.table.events_foldable` refuses, or an unlogged bump, rebuilds in
     full (`build_sketches`).  ``incremental_updates`` / ``full_rebuilds``
-    count which path each sync took.
+    count which path each sync took.  ``plane`` is the partition plane the
+    device backend's ingest kernels run on (``options.mesh``), resolved
+    once at construction: every build and update of the store runs on it,
+    not on whatever ``"auto"`` resolves to later.
     """
 
     def __init__(self, table: Table, *, options: ExecOptions | None = None):
         self.table = table
         self.options = options if options is not None else ExecOptions()
+        self.plane = self.options.plane()
+        self._pinned = self.options.replace(mesh=self.plane)
         self.incremental_updates = 0
         self.full_rebuilds = 0
-        self._sk = build_sketches(table, options=self.options)
+        self._sk = build_sketches(table, options=self._pinned)
         self._version = table.version
 
     def sketches(self) -> TableSketches:
@@ -619,7 +628,7 @@ class SketchStore:
         events = self.table.mutation_events(self._version)
         if events is None or not events_foldable(events):
             self.full_rebuilds += 1
-            self._sk = build_sketches(self.table, options=self.options)
+            self._sk = build_sketches(self.table, options=self._pinned)
         else:
             self.incremental_updates += 1
             for ev in events:
@@ -630,7 +639,7 @@ class SketchStore:
                     if self._sk.num_partitions == ev[1]:
                         with record_function("stream.sketches"):
                             self._sk = update_sketches(
-                                self._sk, self.table, ev[1], options=self.options
+                                self._sk, self.table, ev[1], options=self._pinned
                             )
                 elif ev[0] != "delete":  # compact / rebalance: gather
                     with record_function("lifecycle.sketches"):

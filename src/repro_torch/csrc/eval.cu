@@ -62,6 +62,7 @@
 #include <type_traits>
 
 #include "groupagg.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -231,12 +232,7 @@ template <int P>
 void launch(const agg::Geometry& geo, dim3 grid, cudaStream_t stream, const float* x,
             const float* lo, const float* hi, const float* gmap, const float* values,
             const int* codes, float* out, int C, int G, int V, int R, int radix) {
-  static size_t smem_allowed = 48 * 1024;  // raised once, as far as a launch needs
-  if (geo.smem > smem_allowed) {
-    cudaFuncSetAttribute(eval_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)geo.smem);
-    smem_allowed = geo.smem;
-  }
+  per_device::allow_smem(eval_kernel<P>, geo.smem);
   eval_kernel<P><<<grid, geo.warps * 32, geo.smem, stream>>>(x, lo, hi, gmap, values, codes,
                                                              out, C, G, V, R, radix, geo.tile);
 }
@@ -254,12 +250,7 @@ int repro_fused_eval(const float* x, const float* lo, const float* hi, const flo
   if (B == 0) return (int)cudaGetLastError();
   const agg::Geometry geo = agg::geometry(V, radix);
   const dim3 grid = agg::grid(B, V, radix, geo);
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int sms = per_device::sm_count();
   // the prefetching instance (up to 234 registers a thread) where it costs
   // no resident warps: the grid leaves SMs idle (the planner's 16-row chunk
   // reads), or shared memory already holds an SM to 8 warps of this

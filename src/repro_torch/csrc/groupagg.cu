@@ -30,6 +30,7 @@
 #include <cuda_runtime.h>
 
 #include "groupagg.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -114,12 +115,7 @@ int repro_group_aggregate(const float* values, const float* mask, const int* cod
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   const agg::Geometry geo = agg::geometry(V, radix);
-  static size_t smem_allowed = 48 * 1024;  // raised once, as far as a launch needs
-  if (geo.smem > smem_allowed) {
-    cudaFuncSetAttribute(groupagg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)geo.smem);
-    smem_allowed = geo.smem;
-  }
+  per_device::allow_smem(groupagg_kernel, geo.smem);
   groupagg_kernel<<<agg::grid(B, V, radix, geo), geo.warps * 32, geo.smem,
                     (cudaStream_t)stream>>>(values, mask, codes, out, V, R, radix, geo.tile);
   return (int)cudaGetLastError();

@@ -44,6 +44,8 @@
 // sums).  NaN propagates through the clamp, as jnp.maximum does.
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -227,12 +229,8 @@ int launch(const float* x, const float* c, float* out, int N, int K, int F,
   dim3 grid((K + TN - 1) / TN, (N + TM - 1) / TM);
   const bool vec = F % 4 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0 &&
                    (reinterpret_cast<size_t>(c) & 15) == 0;
-  static bool raised[2] = {false, false};  // the shared-memory limit, once a kernel
-  if (!raised[vec]) {
-    cudaFuncSetAttribute(vec ? pdist_kernel<TM, TN, true> : pdist_kernel<TM, TN, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    raised[vec] = true;
-  }
+  per_device::allow_smem(vec ? pdist_kernel<TM, TN, true> : pdist_kernel<TM, TN, false>,
+                         smem);
   if (vec)
     pdist_kernel<TM, TN, true><<<grid, kThreads, smem, stream>>>(x, c, out, N, K, F);
   else

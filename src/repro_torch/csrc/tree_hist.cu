@@ -63,6 +63,8 @@
 // as in np.cumsum), and the slice is written back coalesced.
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -324,12 +326,7 @@ int repro_tree_hist(const int* codes_t, const int* feat_ids, const int* node, co
         codes_t, feat_ids, node, g, h, out, R, nodes, F, B);
     return (int)cudaGetLastError();
   }
-  static bool smem_allowed = false;
-  if (!smem_allowed) {
-    cudaFuncSetAttribute(tree_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)kSmem);
-    smem_allowed = true;
-  }
+  per_device::allow_smem(tree_hist_kernel, kSmem);
   dim3 grid(C, (nodes * B + kSegTile - 1) / kSegTile);
   tree_hist_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(codes_t, feat_ids, node, g,
                                                                    h, out, R, nodes, F, B);

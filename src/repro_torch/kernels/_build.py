@@ -14,7 +14,9 @@ parallel (one ``nvcc`` each) for callers that want the build up front.
 
 Every exported launcher takes its pointers and the CUDA stream as
 ``void*`` and its sizes as ``int``, and returns ``cudaGetLastError()``
-after the launch; `check` turns a non-zero code into an exception.
+after the launch; `check` turns a non-zero code into an exception.  A
+wrapper calls its launcher under `on_device`, so the launch runs on the
+device its operands lie on.
 """
 from __future__ import annotations
 
@@ -190,3 +192,11 @@ def sizes(kernel: str, *values: int) -> tuple[int, ...]:
 def stream(t: torch.Tensor) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a handle."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t: torch.Tensor):
+    """Context that makes ``t``'s device the current one for a launcher
+    call: a launch runs in the runtime's current device, and the
+    shared-memory limit and SM count a launcher sets or reads are per
+    device (`csrc/per_device.cuh`)."""
+    return torch.cuda.device(t.device)

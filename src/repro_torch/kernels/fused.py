@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.groupagg import MAX_COMPONENTS, blocked_onehot_aggregate
+from repro_torch.kernels.groupagg import MAX_COMPONENTS, ROW_BLOCK, blocked_onehot_aggregate
 
 MAX_CLAUSES = 64  # clause bits of one row: one 64-bit word in the kernel
 
@@ -35,7 +35,7 @@ def fused_eval_plain(cols, lo, hi, group_map, values, codes, num_groups: int):
     mask = predicate_rows(cols, lo, hi, group_map)
     masked = values.to(torch.float32) * mask[:, None, :]
     mcodes = torch.where(mask, codes.to(torch.int32), -1)
-    return blocked_onehot_aggregate(masked, mcodes, num_groups)
+    return blocked_onehot_aggregate(masked, mcodes, num_groups, ROW_BLOCK)
 
 
 def fused_eval(
@@ -62,15 +62,16 @@ def fused_eval(
     out = torch.empty((b, v, num_groups), dtype=torch.float32, device=cols.device)
     lib = _build.library("eval")
     f32 = torch.float32
-    err = lib.repro_fused_eval(
-        _build.pointer(name, "cols", cols, f32, (b, c, r)),
-        _build.pointer(name, "lo", lo, f32, (b, c)),
-        _build.pointer(name, "hi", hi, f32, (b, c)),
-        _build.pointer(name, "group_map", group_map, f32, (b, c, g)),
-        _build.pointer(name, "values", values, f32, (b, v, r)),
-        _build.pointer(name, "codes", codes, torch.int32, (b, r)),
-        out.data_ptr(), *_build.sizes(name, b, c, g, v, r, num_groups), _build.stream(cols),
-    )
+    with _build.on_device(cols):
+        err = lib.repro_fused_eval(
+            _build.pointer(name, "cols", cols, f32, (b, c, r)),
+            _build.pointer(name, "lo", lo, f32, (b, c)),
+            _build.pointer(name, "hi", hi, f32, (b, c)),
+            _build.pointer(name, "group_map", group_map, f32, (b, c, g)),
+            _build.pointer(name, "values", values, f32, (b, v, r)),
+            _build.pointer(name, "codes", codes, torch.int32, (b, r)),
+            out.data_ptr(), *_build.sizes(name, b, c, g, v, r, num_groups), _build.stream(cols),
+        )
     _build.check(lib, name, err)
     _build.LAUNCHES.note(name)
     return out

@@ -44,11 +44,12 @@ def histogram_range(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
         return histogram_range_plain(x, edges)
     out = torch.empty((p, nb), dtype=torch.float32, device=x.device)
     lib = _build.library("ingest")
-    err = lib.repro_histogram_range(
-        _build.pointer(name, "x", x, torch.float32, (p, r)),
-        _build.pointer(name, "edges", edges, torch.float32, (p, nb + 1)),
-        out.data_ptr(), *_build.sizes(name, p, r, nb), _build.stream(x),
-    )
+    with _build.on_device(x):
+        err = lib.repro_histogram_range(
+            _build.pointer(name, "x", x, torch.float32, (p, r)),
+            _build.pointer(name, "edges", edges, torch.float32, (p, nb + 1)),
+            out.data_ptr(), *_build.sizes(name, p, r, nb), _build.stream(x),
+        )
     _build.check(lib, name, err)
     _build.LAUNCHES.note(name)
     return out
@@ -74,10 +75,11 @@ def bincount(codes: torch.Tensor, card: int) -> torch.Tensor:
     p, r = codes.shape
     out = torch.empty((p, card), dtype=torch.float32, device=codes.device)
     lib = _build.library("ingest")
-    err = lib.repro_bincount(
-        _build.pointer(name, "codes", codes, torch.int32, (p, r)), out.data_ptr(),
-        *_build.sizes(name, p, r, card), _build.stream(codes),
-    )
+    with _build.on_device(codes):
+        err = lib.repro_bincount(
+            _build.pointer(name, "codes", codes, torch.int32, (p, r)), out.data_ptr(),
+            *_build.sizes(name, p, r, card), _build.stream(codes),
+        )
     _build.check(lib, name, err)
     _build.LAUNCHES.note(name)
     return out

@@ -39,10 +39,11 @@ def moments(x: torch.Tensor) -> torch.Tensor:
         return moments_plain(x)
     out = torch.empty((p, NSTATS), dtype=torch.float32, device=x.device)
     lib = _build.library("ingest")
-    err = lib.repro_moments(
-        _build.pointer(name, "x", x, torch.float32, (p, r)), out.data_ptr(),
-        *_build.sizes(name, p, r), _build.stream(x),
-    )
+    with _build.on_device(x):
+        err = lib.repro_moments(
+            _build.pointer(name, "x", x, torch.float32, (p, r)), out.data_ptr(),
+            *_build.sizes(name, p, r), _build.stream(x),
+        )
     _build.check(lib, name, err)
     _build.LAUNCHES.note(name)
     return out

@@ -36,11 +36,12 @@ def pdist_sq(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     if n == 0 or k == 0:
         return out
     lib = _build.library("pdist")
-    err = lib.repro_pdist_sq(
-        _build.pointer(name, "x", x, torch.float32, (n, f)),
-        _build.pointer(name, "centers", centers, torch.float32, (k, f)),
-        out.data_ptr(), *_build.sizes(name, n, k, f), _build.stream(x),
-    )
+    with _build.on_device(x):
+        err = lib.repro_pdist_sq(
+            _build.pointer(name, "x", x, torch.float32, (n, f)),
+            _build.pointer(name, "centers", centers, torch.float32, (k, f)),
+            out.data_ptr(), *_build.sizes(name, n, k, f), _build.stream(x),
+        )
     _build.check(lib, name, err)
     _build.LAUNCHES.note(name)
     return out

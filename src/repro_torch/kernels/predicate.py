@@ -64,16 +64,17 @@ def predicate_eval(
     partial = torch.empty((p * -(-r // _ROW_TILE),), dtype=torch.int32, device=dev)
     lib = _build.library("predicate")
     f32 = torch.float32
-    err = lib.repro_predicate_eval(
-        _build.pointer(name, "cols", cols, f32, (p, c, r)),
-        _build.pointer(name, "lo", lo, f32, bounds),
-        _build.pointer(name, "hi", hi, f32, bounds),
-        _build.pointer(name, "group_map", group_map, f32, gshape),
-        mask.data_ptr(), count.data_ptr(), partial.data_ptr(),
-        *_build.sizes(name, p, c, g, r, c if lo.dim() == 2 else 0,
-                      c * g if group_map.dim() == 3 else 0),
-        _build.stream(cols),
-    )
+    with _build.on_device(cols):
+        err = lib.repro_predicate_eval(
+            _build.pointer(name, "cols", cols, f32, (p, c, r)),
+            _build.pointer(name, "lo", lo, f32, bounds),
+            _build.pointer(name, "hi", hi, f32, bounds),
+            _build.pointer(name, "group_map", group_map, f32, gshape),
+            mask.data_ptr(), count.data_ptr(), partial.data_ptr(),
+            *_build.sizes(name, p, c, g, r, c if lo.dim() == 2 else 0,
+                          c * g if group_map.dim() == 3 else 0),
+            _build.stream(cols),
+        )
     _build.check(lib, name, err)
     _build.LAUNCHES.note(name)
     return mask, count

@@ -87,15 +87,16 @@ def tree_hist(codes, feat_ids, node, g, h, num_nodes: int, num_feats: int,
         return out
     codes_t = codes.t().contiguous()
     lib = _build.library("tree_hist")
-    err = lib.repro_tree_hist(
-        _build.pointer(name, "codes", codes_t, torch.int32, (c, r)),
-        _build.pointer(name, "feat_ids", feat_ids, torch.int32, (c,)),
-        _build.pointer(name, "node", node, torch.int32, (r,)),
-        _build.pointer(name, "g", g, torch.float32, (r,)),
-        _build.pointer(name, "h", h, torch.float32, (r,)),
-        out.data_ptr(), *_build.sizes(name, r, c, num_nodes, num_feats, num_bins),
-        _build.stream(codes),
-    )
+    with _build.on_device(codes):
+        err = lib.repro_tree_hist(
+            _build.pointer(name, "codes", codes_t, torch.int32, (c, r)),
+            _build.pointer(name, "feat_ids", feat_ids, torch.int32, (c,)),
+            _build.pointer(name, "node", node, torch.int32, (r,)),
+            _build.pointer(name, "g", g, torch.float32, (r,)),
+            _build.pointer(name, "h", h, torch.float32, (r,)),
+            out.data_ptr(), *_build.sizes(name, r, c, num_nodes, num_feats, num_bins),
+            _build.stream(codes),
+        )
     _build.check(lib, name, err)
     _build.LAUNCHES.note(name)
     return out
@@ -122,10 +123,11 @@ def cumsum_seq(x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return out
     lib = _build.library("tree_hist")
-    err = lib.repro_cumsum_seq(
-        _build.pointer(name, "x", x, torch.float32, tuple(x.shape)), out.data_ptr(),
-        *_build.sizes(name, rows, length), _build.stream(x),
-    )
+    with _build.on_device(x):
+        err = lib.repro_cumsum_seq(
+            _build.pointer(name, "x", x, torch.float32, tuple(x.shape)), out.data_ptr(),
+            *_build.sizes(name, rows, length), _build.stream(x),
+        )
     _build.check(lib, name, err)
     _build.LAUNCHES.note(name)
     return out

@@ -35,13 +35,22 @@ host `engine.predicate_mask`.
 
 The column stack (`EvalCache.device_stack`) is the only bulk tensor and
 ships to the device once; everything per query is a small descriptor.
-`TRACES` counts launches per shape-bucket key, so tests can hold the
-launch keys to `workload_census`.  The driver's phases are labelled
-``eval.*`` for `torch.profiler` (no cost when no profiler is active).
+On a partition plane (`distributed/dataplane.py`) the stack is held in
+shards, one a device: each chunk builds its operands and launches once
+per shard, on that shard's partitions, with the descriptors copied to
+each device once, and the per-shard outputs are gathered in shard order
+with the pad sliced off.  A stack row's sums depend only on its own data
+and on (C, G, V, R, radix), so the answers are bit-identical to the
+single-device launch.  `TRACES` counts launches per shape-bucket key
+(local shapes on a plane), so tests can hold the launch keys to
+`workload_census`, whose cardinality does not depend on the plane.  The
+driver's phases are labelled ``eval.*`` for `torch.profiler` (no cost
+when no profiler is active).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -49,6 +58,7 @@ from torch.profiler import record_function
 
 from repro_torch.core.clustering import bucket_size
 from repro_torch.data.table import CATEGORICAL, Table
+from repro_torch.distributed import dataplane
 from repro_torch.kernels import ops
 from repro_torch.kernels.telemetry import TraceRegistry
 from repro_torch.queries import engine
@@ -247,10 +257,20 @@ def _signature(canon: CanonicalPredicate, radix: int, n_raw: int) -> Signature:
     return Signature(cb, gb, _radix_bucket(radix), vb)
 
 
-def _max_stack(table: Table, sig: Signature) -> int:
+def _stack_local(table: Table, plane=None) -> int:
+    """Partitions of the stack each launch sees: the padded shape bucket
+    (`engine.stack_partitions`, the streaming plane's append slack),
+    divided over the plane's shards."""
+    pb = engine.stack_partitions(table.num_partitions, plane)
+    return pb // plane.num_devices if plane is not None else pb
+
+
+def _max_stack(table: Table, sig: Signature, plane=None) -> int:
     """Largest power-of-two query stack that fits the element budget
-    (clause gather and segment-sum output are the two bulk tensors)."""
-    n_local = engine.stack_partitions(table.num_partitions)
+    (clause gather and segment-sum output are the two bulk tensors).  On a
+    plane the budget is per shard, so the local partition count is what
+    multiplies in."""
+    n_local = _stack_local(table, plane)
     per_query = n_local * (
         table.rows_per_partition * max(sig.num_clauses, sig.n_raw, 1)
         + sig.radix * sig.n_raw
@@ -346,17 +366,14 @@ def _descriptor(plan: _QueryPlan, cache: engine.EvalCache):
     return col_idx, lo, hi, gmap, coefs, mults
 
 
-def kernel_call(chunk: list[_QueryPlan], cache: engine.EvalCache) -> tuple[str, tuple]:
-    """The kernel one stacked chunk launches and its operands:
-    ``("fused_eval", (x, lo, hi, gmap, values, codes, radix))`` or
-    ``("group_aggregate", (values, mask, codes, radix))`` — the `ops`
-    entry point of that name takes exactly these arguments."""
+def _descriptors(chunk: list[_QueryPlan], cache: engine.EvalCache) -> tuple:
+    """The chunk's per-query descriptors stacked to the bucketed depth Q_b:
+    (col_idx (Q_b, C_b), lo, hi, gmap (Q_b, C_b, G_b), coefs (Q_b, V_b,
+    n_cols+1), mults (Q_b, n_cols+1)) host arrays."""
     sig = chunk[0].sig
     qb = bucket_size(len(chunk), minimum=1)
     ncols1 = cache.ones_index + 1
-    stack = cache.device_stack()
     cw = max(sig.num_clauses, 1)
-
     col_idx = np.zeros((qb, cw), np.int64)
     lo = np.full((qb, cw), np.float32(1.0), np.float32)
     hi = np.full((qb, cw), np.float32(-1.0), np.float32)
@@ -365,21 +382,49 @@ def kernel_call(chunk: list[_QueryPlan], cache: engine.EvalCache) -> tuple[str, 
     mults = np.zeros((qb, ncols1), np.float32)
     for i, plan in enumerate(chunk):
         col_idx[i], lo[i], hi[i], gmap[i], coefs[i], mults[i] = _descriptor(plan, cache)
+    return col_idx, lo, hi, gmap, coefs, mults
 
-    def dev(a):
-        return torch.from_numpy(a).to(stack.device)
 
+def _operands(sig: Signature, stack, col_idx, lo, hi, gmap, coefs, mults) -> tuple[str, tuple]:
+    """The kernel a chunk launches on one (n_cols+1, P, R) stack (the
+    whole stack, or one shard of it) and its operands, from descriptors
+    already on the stack's device."""
     p = stack.shape[1]
     if not sig.has_predicate:
-        _, values, codes = _device_inputs(stack, None, dev(coefs), dev(mults))
+        _, values, codes = _device_inputs(stack, None, coefs, mults)
         mask = torch.ones(codes.shape, dtype=torch.float32, device=stack.device)
         return "group_aggregate", (values, mask, codes, sig.radix)
-    x, values, codes = _device_inputs(stack, dev(col_idx), dev(coefs), dev(mults))
+    x, values, codes = _device_inputs(stack, col_idx, coefs, mults)
     # per-query descriptors repeated over the query's P stack rows
-    lo_b = dev(lo).repeat_interleave(p, dim=0)  # (Q_b·P, C_b)
-    hi_b = dev(hi).repeat_interleave(p, dim=0)
-    gmap_b = dev(gmap).repeat_interleave(p, dim=0)  # (Q_b·P, C_b, G_b)
+    lo_b = lo.repeat_interleave(p, dim=0)  # (Q_b·P, C_b)
+    hi_b = hi.repeat_interleave(p, dim=0)
+    gmap_b = gmap.repeat_interleave(p, dim=0)  # (Q_b·P, C_b, G_b)
     return "fused_eval", (x, lo_b, hi_b, gmap_b, values, codes, sig.radix)
+
+
+def kernel_call(chunk: list[_QueryPlan], cache: engine.EvalCache) -> tuple[str, tuple]:
+    """The kernel one stacked chunk launches on a single-device cache and
+    its operands: ``("fused_eval", (x, lo, hi, gmap, values, codes,
+    radix))`` or ``("group_aggregate", (values, mask, codes, radix))`` —
+    the `ops` entry point of that name takes exactly these arguments."""
+    if cache.plane is not None:
+        raise ValueError("a plane's cache launches once per shard (see _run_chunk)")
+    stack = cache.device_stack()
+    desc = [torch.from_numpy(a).to(stack.device) for a in _descriptors(chunk, cache)]
+    return _operands(chunk[0].sig, stack, *desc)
+
+
+def _launch(sig: Signature, stack, *desc) -> torch.Tensor:
+    """One chunk's launch on one stack (or shard) → (Q_b·P, V_b, radix_b)."""
+    with record_function("eval.device_inputs"):
+        name, args = _operands(sig, stack, *desc)
+    rows = args[0].shape[0]  # Q_b · P (local P on a plane)
+    with record_function("eval.kernel"):
+        if name == "fused_eval":
+            TRACES.note("eval", rows, sig.num_clauses, sig.num_groups, sig.radix, sig.n_raw)
+            return ops.fused_eval_op(*args)
+        TRACES.note("eval_nopred", rows, sig.radix, sig.n_raw)
+        return ops.group_aggregate_op(*args)
 
 
 def _run_chunk(
@@ -388,20 +433,25 @@ def _run_chunk(
     sig = chunk[0].sig
     n = cache.table.num_partitions
     qb = bucket_size(len(chunk), minimum=1)
+    plane = cache.plane
     with record_function("eval.device_inputs"):
-        name, args = kernel_call(chunk, cache)
-    rows = args[0].shape[0]  # Q_b · P_bucket
-    with record_function("eval.kernel"):
-        if name == "fused_eval":
-            TRACES.note("eval", rows, sig.num_clauses, sig.num_groups, sig.radix, sig.n_raw)
-            out = ops.fused_eval_op(*args)
-        else:
-            TRACES.note("eval_nopred", rows, sig.radix, sig.n_raw)
-            out = ops.group_aggregate_op(*args)
+        stack = cache.device_stack()
+        desc = _descriptors(chunk, cache)
+        if plane is None:
+            desc = [torch.from_numpy(a).to(stack.device) for a in desc]
+    if plane is None:
+        outs = [_launch(sig, stack, *desc)]
+    else:
+        # one launch a shard, every one issued before the first readback
+        outs = dataplane.sharded_call(plane, functools.partial(_launch, sig), [stack], desc)
     with record_function("eval.unpack"):
-        out = out.reshape(qb, rows // qb, sig.n_raw, sig.radix)
-        # [:, :n] slices off the stack's zero pad partitions
-        out = out[:, :n].cpu().numpy().astype(np.float64)
+        outs = [o.reshape(qb, o.shape[0] // qb, sig.n_raw, sig.radix) for o in outs]
+        if plane is None:
+            # [:, :n] slices off the stack's zero pad partitions
+            out = outs[0][:, :n].cpu().numpy()
+        else:
+            out = plane.gather(outs, n, axis=1)
+        out = out.astype(np.float64)
         answers = []
         for i, plan in enumerate(chunk):
             raw = out[i, :, : plan.n_raw, : plan.radix].transpose(0, 2, 1)
@@ -440,7 +490,7 @@ def plan_launches(table: Table, queries: list[Query], cache: engine.EvalCache):
     chunks = [
         chunk
         for sig, entries in grouped.items()
-        for chunk in _chunks(entries, _max_stack(table, sig))
+        for chunk in _chunks(entries, _max_stack(table, sig, cache.plane))
     ]
     return chunks, fallback
 
@@ -518,10 +568,12 @@ def workload_census(
     table: Table, queries: list[Query], cache: engine.EvalCache | None = None
 ) -> set[tuple]:
     """Launch keys a workload produces — the same keys the reference's
-    compile census holds: one per (stack depth, signature) bucket."""
+    compile census holds: one per (stack depth, signature) bucket, at the
+    stack's local partition count on a plane, so the set's cardinality
+    does not depend on the plane."""
     cache = cache or engine.EvalCache(table)
     chunks, _ = plan_launches(table, queries, cache)
-    n_local = engine.stack_partitions(table.num_partitions)
+    n_local = _stack_local(table, cache.plane)
     keys: set[tuple] = set()
     for chunk in chunks:
         sig = chunk[0][1].sig

@@ -19,7 +19,9 @@ Two execution backends with identical semantics (see `repro_torch.backends`):
 group-by tuple, per-column float casts, per-aggregate projections) so a
 training workload or serving batch never recomputes them per query.
 `AnswerStore` caches whole answers (and the planner's partial answers)
-per query.
+per query.  On a partition plane (``ExecOptions.mesh``) the device column
+stack is held in shards, one a device, and the driver launches once per
+shard; answers are bit-identical to the single-device path.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch import faults
 from repro_torch.backends import ExecOptions
 from repro_torch.core.clustering import bucket_size
 from repro_torch.data.table import CATEGORICAL, NUMERIC, Table, events_foldable
+from repro_torch.distributed import dataplane
 from repro_torch.errors import InvalidQueryError, StaleStateError
 from repro_torch.queries.ir import Aggregate, Predicate, Query
 
@@ -211,15 +214,17 @@ def subset_fingerprint(part_ids: np.ndarray) -> str:
 # --------------------------------------------------------------------------
 # workload-invariant evaluation cache
 # --------------------------------------------------------------------------
-def stack_partitions(num_partitions: int) -> int:
+def stack_partitions(num_partitions: int, plane=None) -> int:
     """Physical partition count of the device column stack: P padded to a
-    power-of-two shape bucket.
+    power-of-two shape bucket (and, on a partition plane, to a plane
+    multiple).
 
     The slack between P and the bucket is the streaming plane's headroom:
     appends write new partition columns into it without changing the
     stack's shape, so the driver's shape-bucket signatures stay the same
-    until the bucket overflows and the stack is re-padded."""
-    return bucket_size(num_partitions, minimum=1)
+    until the bucket overflows and the stack is re-padded (and re-sharded)."""
+    pb = bucket_size(num_partitions, minimum=1)
+    return plane.padded(pb) if plane is not None else pb
 
 
 class EvalCache:
@@ -233,7 +238,11 @@ class EvalCache:
 
     ``options.device`` is the torch device the column stack lives on
     (resolved at the first `device_stack` call, so a host-backend cache
-    never needs the device).
+    never needs the device).  ``plane`` (``options.plane()``, resolved at
+    construction) is the partition plane of the device backend: the stack
+    is then held in shards, (n_cols+1, local, R) on each of the plane's
+    devices, and every consumer — the query driver, `AnswerStore`, the
+    serving `BatchPicker` — runs partition-parallel without changing.
 
     **Invalidation semantics.**  Every accessor checks the table's data
     version first and folds the pending `Table.mutation_events`.  An
@@ -255,6 +264,7 @@ class EvalCache:
     def __init__(self, table: Table, *, options: ExecOptions | None = None):
         self.table = table
         self.options = options if options is not None else ExecOptions()
+        self.plane = self.options.plane()
         self._version = table.version
         self._fp = table.fingerprint()
         self._fp_tick = 0
@@ -264,7 +274,8 @@ class EvalCache:
         self._proj: dict[tuple, np.ndarray] = {}
         self._posinf: dict[str, bool] = {}
         self._nonfinite: dict[str, bool] = {}
-        self._stack: torch.Tensor | None = None  # (n_cols+1, P_bucket, R) on device
+        # (n_cols+1, P_bucket, R) on the device, or its shards on the plane
+        self._stack: torch.Tensor | dataplane.ShardedTensor | None = None
         self._stack_p = 0  # logical partitions currently written into it
         self.col_index = {s.name: i for i, s in enumerate(table.schema)}
         self.ones_index = len(table.schema)
@@ -449,9 +460,10 @@ class EvalCache:
 
     def _write_stack(self, host: np.ndarray, start: int) -> None:
         """Write host partitions into the device stack at ``start``, in
-        place (one host→device copy of the written region only)."""
-        dst = self._stack[:, start : start + host.shape[1]]
-        dst.copy_(torch.from_numpy(host))
+        place (one host→device copy of the written region only, split
+        across shards on a plane): `dataplane.write_partitions`."""
+        self._stack = dataplane.write_partitions(self._stack, host, start, axis=1,
+                                                 plane=self.plane)
 
     def _grow_stack(self) -> None:
         """Append partitions [stack_p, P) into the device stack's slack —
@@ -496,7 +508,7 @@ class EvalCache:
         self._stack_p = n
         self.stack_rewrites += 1
 
-    def device_stack(self) -> torch.Tensor:
+    def device_stack(self) -> torch.Tensor | dataplane.ShardedTensor:
         """(n_cols+1, P_bucket, R) float32 column stack on ``options.device``.
 
         The trailing pseudo-column is all-ones: the count component and
@@ -505,11 +517,15 @@ class EvalCache:
         coefficients) — the table itself ships once per EvalCache.
 
         The partition axis is zero-padded to `stack_partitions` (the
-        power-of-two shape bucket).  The zero slack beyond the table's
-        real P — including the zeroed ones-column, so padded partitions
-        can never contribute a count — is the streaming plane's append
-        headroom: `_grow_stack` writes new partitions into it in place,
-        and the driver slices answers back to the real P.
+        power-of-two shape bucket; on a plane also a plane multiple) and,
+        on a partition plane, split into a `dataplane.ShardedTensor` of
+        (n_cols+1, local, R) shards, one on each of the plane's devices.
+        The zero slack beyond the table's real P — including the zeroed
+        ones-column, so padded partitions can never contribute a count —
+        is the streaming plane's append headroom: `_grow_stack` writes new
+        partitions into it in place (across shard boundaries where the
+        range crosses one), and the driver slices answers back to the
+        real P.
         """
         with self._lock:
             self._sync_locked()
@@ -517,13 +533,17 @@ class EvalCache:
             if self._stack is None:
                 t = self.table
                 device = self.options.torch_device()
+                target = stack_partitions(t.num_partitions, self.plane)
                 with record_function("eval.stack_upload"):
-                    self._stack = torch.zeros(
-                        (len(t.schema) + 1, stack_partitions(t.num_partitions),
-                         t.rows_per_partition),
-                        dtype=torch.float32, device=device,
-                    )
-                    self._write_stack(self._host_stack(0, t.num_partitions), 0)
+                    host = self._host_stack(0, t.num_partitions)
+                    if self.plane is not None:
+                        self._stack = self.plane.shard_partitions(host, axis=1, target=target)
+                    else:
+                        self._stack = torch.zeros(
+                            (len(t.schema) + 1, target, t.rows_per_partition),
+                            dtype=torch.float32, device=device,
+                        )
+                        self._write_stack(host, 0)
                 self.stack_rebuilds += 1
                 self._stack_p = t.num_partitions
             return self._stack
@@ -592,6 +612,9 @@ class AnswerStore:
     ``ttl`` (seconds on ``clock``, default `time.monotonic`) bounds how long
     an entry may serve; an expired entry is re-evaluated on access and
     counted in ``ttl_expired``.
+
+    ``plane`` is the partition plane its `EvalCache` resolved; the delta
+    views and subset tables of the paths above evaluate on the same plane.
     """
 
     def __init__(self, table: Table, capacity: int = 256, *,
@@ -625,6 +648,17 @@ class AnswerStore:
         # delta view + EvalCache per pre-append P, shared across entries
         # (and across get() calls) so one append ships one delta stack
         self._delta_caches: dict[int, tuple[Table, EvalCache]] = {}
+
+    @property
+    def plane(self):
+        """The partition plane the device backend evaluates on (or None)."""
+        return self._eval_cache.plane
+
+    def _pinned(self) -> ExecOptions:
+        """The options with the plane the store resolved at construction:
+        a delta view or a subset table must shard the way the main stack
+        does, not whatever ``"auto"`` resolves to now."""
+        return self.options.replace(mesh=self._eval_cache.plane)
 
     def _delta_backend_safe(self, start: int) -> bool:
         """Merging old answers with delta answers is only sound if the
@@ -727,7 +761,7 @@ class AnswerStore:
         t = self.table
         cols = {k: v[start:] for k, v in t.columns.items()}
         view = Table(t.schema, cols, name=f"{t.name}/delta@{start}")
-        cache = EvalCache(view, options=self.options)
+        cache = EvalCache(view, options=self._pinned())
         if self.options.backend == "device":
             # only the device driver reads these flags, so the host backend
             # skips the full-column scans the seeding would force
@@ -831,7 +865,7 @@ class AnswerStore:
                     cols = {k: v[ids] for k, v in t.columns.items()}
                     view = Table(t.schema, cols, name=f"{t.name}/subset")
                 ans = per_partition_answers(
-                    view, query, cache=EvalCache(view, options=self.options),
+                    view, query, cache=EvalCache(view, options=self._pinned()),
                     options=self.options,
                 )
             self._partial[key] = ans
@@ -957,12 +991,13 @@ def per_partition_answers_batch(
     each group along the partition axis so a training workload is a
     handful of kernel launches; the host backend shares the `EvalCache`
     intermediates across the loop.  The device backend runs on the
-    ``cache``'s device, so a ``cache`` built for another device than
-    ``options.device`` is refused.  Answers are per-partition row-local,
-    so a grown table's first ``P_old`` answer rows equal the pre-append
-    ones.  Pass a long-lived ``cache`` to amortize the device column stack
-    and host intermediates across calls; it self-synchronizes against
-    table appends (see `EvalCache`).
+    ``cache``'s device and plane, so a ``cache`` built for another device
+    than ``options.device`` is refused.  Answers are per-partition
+    row-local, so a grown table's first ``P_old`` answer rows equal the
+    pre-append ones, and they are bit-identical on every plane.  Pass a
+    long-lived ``cache`` to amortize the device column stack and host
+    intermediates across calls; it self-synchronizes against table
+    appends (see `EvalCache`).
     """
     options = options if options is not None else ExecOptions()
     cache = cache or EvalCache(table, options=options)

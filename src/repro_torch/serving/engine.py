@@ -164,6 +164,7 @@ class BatchPicker:
             if key not in self._bucket_base
         }
         eval_compiles = len(set(query_device.TRACES.counts()) - set(self._eval_base))
+        plane = self.answers.plane
         return {
             **self.stats.as_dict(),
             "shape_buckets": len(buckets),
@@ -171,6 +172,8 @@ class BatchPicker:
                 f"{kern}:n{nb}:k{kb}": c for (kern, nb, kb), c in buckets.items()
             },
             "eval_compiles": eval_compiles,  # new query-eval launch keys
+            # partition plane the answer path evaluates on (1 = unsharded)
+            "mesh_devices": plane.num_devices if plane is not None else 1,
             # streaming-append telemetry: answers kept across appends and
             # in-place device-stack slack writes vs full stack rebuilds
             "answers_carried": self.answers.carried,

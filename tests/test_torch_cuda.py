@@ -777,3 +777,156 @@ def test_save_and_restore_on_cuda(cuda, tmp_path):
         assert g.estimate.tobytes() == a.estimate.tobytes()
         assert g.ci_halfwidth.tobytes() == a.ci_halfwidth.tobytes()
     assert back.answers._eval_cache.device_stack().device.type == "cuda"
+
+
+# --------------------------------------------------------------------------
+# the partition data plane on the card
+# --------------------------------------------------------------------------
+@pytest.fixture
+def cuda2(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda:1")
+
+
+def _plane_options(cuda):
+    return ExecOptions(device=str(cuda), mesh=(f"cuda:{cuda.index or 0}",) * 3)
+
+
+def test_logical_shard_plane_on_cuda_is_bit_equal(cuda):
+    """A 3-logical-shard plane on one card (20 → 32 slots, 11 a shard, a
+    pad partition in the last shard) gives the single-device path's bits:
+    statistics, answers, and an append's fold across the shard boundary."""
+    plane, single = _plane_options(cuda), ExecOptions(device=str(cuda))
+    table = make_dataset("tpch", num_partitions=20, rows_per_partition=2048, seed=3)
+    queries = WorkloadSpec(table, seed=5).sample_workload(12)
+    from repro_torch.core import ingest
+
+    want = ingest.build_statistics(table, discrete_counts=True, options=single)
+    ingest_stats = ingest.build_statistics(table, discrete_counts=True, options=plane)
+    for col, tensors in want.items():
+        for key, val in tensors.items():
+            assert np.asarray(val).tobytes() == np.asarray(ingest_stats[col][key]).tobytes()
+    store = AnswerStore(table, options=plane)
+    assert store.plane.num_devices == 3
+    _build.LAUNCHES.reset()
+    got = store.get_batch(queries)
+    launches = {k[0]: n for k, n in _build.LAUNCHES.counts().items()}
+    assert launches.get("fused_eval", 0) % 3 == 0 and launches.get("fused_eval", 0) > 0
+    stack = store._eval_cache.device_stack()
+    assert stack.shape[1] == 33 and [s.shape[1] for s in stack.shards] == [11] * 3
+
+    def cold():
+        return per_partition_answers_batch(table, queries, options=single,
+                                           cache=EvalCache(table, options=single))
+
+    for g, w in zip(got, cold()):
+        np.testing.assert_array_equal(g.group_keys, w.group_keys)
+        np.testing.assert_array_equal(g.raw.view(np.uint64), w.raw.view(np.uint64))
+    delta = make_dataset("tpch", num_partitions=5, rows_per_partition=2048, layout="random",
+                         seed=8)
+    append_partitions(table, delta.columns)  # 20 → 25: slots 20..24 span shards 1 and 2
+    got = store.get_batch(queries)
+    assert store._eval_cache.stack_appends == 1
+    for g, w in zip(got, cold()):
+        np.testing.assert_array_equal(g.group_keys, w.group_keys)
+        np.testing.assert_array_equal(g.raw.view(np.uint64), w.raw.view(np.uint64))
+
+
+@pytest.mark.parametrize("radix,v", [(8, 4), (512, 2)])
+def test_shard_rows_take_the_full_launch_bits(cuda, radix, v):
+    """fused_eval and group_aggregate give a shard's rows the bits the full
+    launch gives them where the shard's grid is below the SM count (the
+    prefetching fused_eval instance) and the full launch's is not."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    b = 3 * (sms - 2)  # three shards of sms - 2 rows
+    arrs = _fused_case(b, 5, 2, v, 3000, radix, seed=radix)
+    full = [torch.from_numpy(a).to(cuda) for a in arrs]
+    got_full = fused.fused_eval(*full, radix)
+    rng = np.random.default_rng(radix)
+    mask = torch.from_numpy((rng.random((b, 3000)) < 0.7).astype(np.float32)).to(cuda)
+    agg_full = groupagg.group_aggregate(full[4], mask, full[5], radix)
+    local = b // 3
+    for s in range(3):
+        rows = slice(s * local, (s + 1) * local)
+        part = [t[rows].contiguous() for t in full]
+        np.testing.assert_array_equal(_bits(fused.fused_eval(*part, radix)),
+                                      _bits(got_full[rows]))
+        np.testing.assert_array_equal(
+            _bits(groupagg.group_aggregate(part[4], mask[rows].contiguous(), part[5], radix)),
+            _bits(agg_full[rows]))
+
+
+def test_shared_memory_limit_is_raised_on_each_device(cuda, cuda2):
+    """Launches whose shared memory needs the raised limit run on cuda:1
+    after the same launches on cuda:0, and equal their plain versions."""
+    arrs = _fused_case(6, 4, 2, 4, 3000, 2048, seed=4)
+    for dev in (torch.device("cuda", 0), cuda2):
+        ops = [torch.from_numpy(a).to(dev) for a in arrs]
+        got = fused.fused_eval(*ops, 2048)
+        assert got.device == dev
+        _check_sums(got.cpu().numpy(), fused.fused_eval_plain(*ops, 2048).cpu().numpy())
+        mask = torch.ones(ops[5].shape, dtype=torch.float32, device=dev)
+        got = groupagg.group_aggregate(ops[4], mask, ops[5], 2048)
+        _check_sums(got.cpu().numpy(),
+                    groupagg.group_aggregate_plain(ops[4], mask, ops[5], 2048).cpu().numpy())
+        rng = np.random.default_rng(1)
+        x = torch.from_numpy(rng.normal(size=(256, 130)).astype(np.float32)).to(dev)
+        c = torch.from_numpy(rng.normal(size=(128, 130)).astype(np.float32)).to(dev)
+        np.testing.assert_allclose(pdist.pdist_sq(x, c).cpu().numpy(),
+                                   pdist.pdist_sq_plain(x, c).cpu().numpy(), rtol=1e-4,
+                                   atol=1e-3)
+
+
+def test_session_on_the_second_device(cuda, cuda2):
+    """``ExecOptions(device="cuda:1")`` runs a Session's execute there, with
+    the bits of the same Session on cuda:0."""
+    from repro_torch import api
+
+    queries = None
+    results = []
+    for dev in (cuda2, cuda):
+        sess = _tiny_session(api.ExecOptions(device=f"cuda:{dev.index or 0}"))
+        queries = queries or WorkloadSpec(sess.table, seed=7).sample_workload(3)
+        results.append([sess.execute(api.QuerySpec(q, error_bound=0.05)) for q in queries])
+        assert sess.answers._eval_cache.device_stack().device == torch.device(
+            f"cuda:{dev.index or 0}")
+    for a, b in zip(*results):
+        assert a.partitions_read == b.partitions_read
+        assert a.estimate.tobytes() == b.estimate.tobytes()
+
+
+def test_plane_across_devices_is_bit_equal(cuda, cuda2, monkeypatch):
+    """A plane over every visible card (``REPRO_MESH=all`` through
+    ``mesh="auto"``): each shard on its own device, launched on it, and the
+    statistics, answers and an append's fold bit-equal to one card's."""
+    from repro_torch.core import ingest
+
+    single = ExecOptions(device=str(cuda))
+    monkeypatch.setenv("REPRO_MESH", "all")
+    opts = ExecOptions(device=str(cuda), mesh="auto")
+    plane = opts.plane()
+    assert plane.num_devices == torch.cuda.device_count()
+    table = make_dataset("tpch", num_partitions=30, rows_per_partition=4096, seed=6)
+    queries = WorkloadSpec(table, seed=2).sample_workload(12)
+    want = ingest.build_statistics(table, discrete_counts=True, options=single)
+    got = ingest.build_statistics(table, discrete_counts=True, options=opts)
+    for col, tensors in want.items():
+        for key, val in tensors.items():
+            assert np.asarray(val).tobytes() == np.asarray(got[col][key]).tobytes()
+    store = AnswerStore(table, options=opts)
+    assert store.plane is not None
+    for step in range(2):
+        got = store.get_batch(queries)
+        stack = store._eval_cache.device_stack()
+        assert [s.device for s in stack.shards] == list(plane.devices)
+        cold = per_partition_answers_batch(table, queries, options=single,
+                                           cache=EvalCache(table, options=single))
+        for g, w in zip(got, cold):
+            np.testing.assert_array_equal(g.group_keys, w.group_keys)
+            np.testing.assert_array_equal(g.raw.view(np.uint64), w.raw.view(np.uint64))
+        if step == 0:
+            delta = make_dataset("tpch", num_partitions=2, rows_per_partition=4096,
+                                 layout="random", seed=3)
+            append_partitions(table, delta.columns)
+    assert store._eval_cache.stack_appends == 1

@@ -48,7 +48,7 @@ from repro_torch.faults import (
 )
 from repro_torch.planner import PlannerConfig, QueryPlanner
 from repro_torch.queries import device
-from repro_torch.queries.engine import AnswerStore
+from repro_torch.queries.engine import AnswerStore, EvalCache
 
 SEED = int(os.environ.get("CHAOS_SEED", "20240807"))
 HOST = ExecOptions(backend="host")
@@ -411,6 +411,35 @@ def test_census_flat_under_faults(ctx):
             failed += planner.answer(q, error_bound=bound).plan.partitions_failed
     assert set(device.TRACES.counts()) <= expected, (device.TRACES.counts(), expected)
     assert failed > 0, "chaos policy injected no failures"
+
+
+@pytest.mark.parametrize("mesh", [2, 8], ids=["mesh2", "mesh8"])
+def test_census_flat_under_faults_on_a_plane(ctx, mesh):
+    """The reference's plane lanes on ``mesh`` logical CPU shards: every
+    key the faulted escalation launches is a key of the fault-free chunk
+    census at the plane's local shapes, and the answers equal the
+    single-device port's byte for byte."""
+    opts = DEVICE.replace(faults=CHAOS, mesh=mesh)
+    planner = _planner(ctx, opts)
+    single = _planner(ctx, DEVICE.replace(faults=CHAOS))
+    chunk = PlannerConfig().chunk
+    sub = Table(ctx.table.schema, {k: v[:chunk] for k, v in ctx.table.columns.items()},
+                name=f"{ctx.table.name}/censusprobe")
+    probes = [q for q in ctx.queries if q.groupby][:3]
+    expected = set()
+    for q in probes:
+        expected |= device.workload_census(sub, [q], EvalCache(sub, options=opts))
+    bounds = (0.10, 0.05, 1e-6)
+    want = [single.answer(q, error_bound=b) for q in probes for b in bounds]
+    device.TRACES.reset()
+    got = [planner.answer(q, error_bound=b) for q in probes for b in bounds]
+    keys = set(device.TRACES.counts())
+    for g, w in zip(got, want, strict=True):
+        assert g.estimate.tobytes() == w.estimate.tobytes()
+        assert g.partitions_read == w.partitions_read
+    failed = sum(g.plan.partitions_failed for g in got)
+    assert keys <= expected, (keys, expected)
+    assert failed > 0, "chaos policy injected no failures on this plane"
 
 
 def _session(ctx, options):

@@ -404,6 +404,15 @@ def test_device_lane_parity(shared, dirs):
         run_seeded(shared, SEED + 1000 + i, 3, DEVICE, dirs)
 
 
+@pytest.mark.parametrize("mesh", [2, 8], ids=["mesh2", "mesh8"])
+def test_mesh_parity(shared, dirs, mesh):
+    """The reference's plane lanes on ``mesh`` logical CPU shards: the
+    machine's live folds (stack writes across shards, re-pads, in-bucket
+    rewrites) against the cold oracle on the same plane, byte-equal."""
+    for i in range(2):
+        run_seeded(shared, SEED + 1000 + i, 3, DEVICE.replace(mesh=mesh), dirs)
+
+
 def test_no_full_rebuilds_along_a_checked_sequence(shared, dirs):
     """Folding is O(touched): a crash-free sequence with a query after
     every op never falls back to a full sketch rebuild."""

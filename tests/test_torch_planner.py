@@ -105,6 +105,48 @@ def test_execute_with_grafted_picker_matches_reference(reference, options):
     assert sess.stats()["executed"] == 4 * len(ref_queries)
 
 
+def _rel_err(keys_e, est, keys_t, truth) -> float:
+    """The reference's calibration metric (`tests/test_planner.py`): mean over
+    truth groups × aggregates of the capped relative error; a missed group
+    scores 1.0."""
+    lut = {int(k): i for i, k in enumerate(keys_e)}
+    errs = []
+    for gi, k in enumerate(keys_t):
+        i = lut.get(int(k))
+        for j in range(truth.shape[1]):
+            t = truth[gi, j]
+            if np.isnan(t):
+                continue
+            if i is None or np.isnan(est[i, j]):
+                errs.append(1.0)
+            else:
+                errs.append(min(abs(est[i, j] - t) / max(abs(t), 1e-12), 1.0))
+    return float(np.mean(errs)) if errs else 0.0
+
+
+@pytest.mark.parametrize("mesh", [2, 8], ids=["mesh2", "mesh8"])
+def test_calibration_on_a_plane(reference, mesh):
+    """The plane lanes of the reference's calibration sweep (device
+    backend, its 6 queries) on ``mesh`` logical CPU shards: every planned
+    answer equals the single-device port's byte for byte (estimates, CI
+    halfwidths, group keys, partitions read), and the error is within the
+    5% bound on at least 90% of the queries, as the reference demands."""
+    ref_sess, ref_queries = reference
+    plane = _grafted(ref_sess, DEVICE.replace(mesh=mesh))
+    single = _grafted(ref_sess, DEVICE)
+    assert plane.answers.plane.num_devices == mesh and single.answers.plane is None
+    hits = 0
+    for q in carry.queries(ref_queries):
+        got = plane.execute(api.QuerySpec(q, error_bound=0.05))
+        want = single.execute(api.QuerySpec(q, error_bound=0.05))
+        for field in ("group_keys", "estimate", "ci_halfwidth"):
+            assert getattr(got, field).tobytes() == getattr(want, field).tobytes(), field
+        assert got.partitions_read == want.partitions_read
+        truth = per_partition_answers(plane.table, q, options=HOST)
+        hits += _rel_err(got.group_keys, got.estimate, truth.group_keys, truth.truth()) <= 0.05
+    assert hits / len(ref_queries) >= 0.9, f"{hits}/{len(ref_queries)} within 0.05"
+
+
 def test_execute_batch_matches_reference(reference):
     ref_sess, ref_queries = reference
     sess = _grafted(ref_sess, HOST)

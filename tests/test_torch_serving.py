@@ -226,7 +226,7 @@ def test_batch_picker_matches_reference(ctx, options):
                 ws.num_outliers, ws.group_sizes, ws.group_budgets)
             np.testing.assert_array_equal(np.sort(gs.weights), np.sort(ws.weights))
     st, ref_st = bp.serve_stats(), ref_bp.serve_stats()
-    for key in ("picks", "answer_hits", "answer_misses"):
+    for key in ("picks", "answer_hits", "answer_misses", "mesh_devices"):
         assert st[key] == ref_st[key], key
     assert st["fault_report"] is None
 

@@ -121,6 +121,34 @@ def test_append_equivalence_sweep(backend):
     assert answer_store.carried >= len(queries) and answer_store.misses == len(queries)
 
 
+@pytest.mark.parametrize("mesh", [2, 8], ids=["mesh2", "mesh8"])
+def test_append_equivalence_sweep_on_a_plane(mesh):
+    """The reference sweep's plane lanes on ``mesh`` logical CPU shards:
+    after every append the folded sketches and answers equal a cold
+    rebuild on the plane and the single-device port's, bit for bit (the
+    overflow to 17 re-pads the 8-slot stack at 32)."""
+    opts = CPU.replace(mesh=mesh)
+    table = carry.table(ref_make_dataset("kdd", num_partitions=5, rows_per_partition=64))
+    queries = WorkloadSpec(table, seed=3).sample_workload(8)
+    sketch_store = SketchStore(table, options=opts)
+    answer_store = AnswerStore(table, options=opts)
+    assert answer_store.plane.num_devices == mesh
+    answer_store.get_batch(queries)
+    for parts, seed in ((3, 11), (0, 12), (9, 13)):
+        delta = _delta(parts, seed=seed)
+        append_partitions(table, delta.columns if isinstance(delta, Table) else delta)
+        sk = sketch_store.sketches()
+        assert_sketches_equal(sk, build_sketches(table, options=opts))
+        assert_sketches_equal(sk, build_sketches(table, options=CPU))
+        got = answer_store.get_batch(queries)
+        for options in (opts, CPU):
+            assert_answers_equal(got, per_partition_answers_batch(
+                table, queries, options=options, cache=EvalCache(table, options=options)))
+    assert sketch_store.incremental_updates == 3 and sketch_store.full_rebuilds == 0
+    assert answer_store.carried >= len(queries)
+    assert answer_store._eval_cache.device_stack().shape[1] == 32
+
+
 @pytest.mark.parametrize("backend", ["host", "device"])
 def test_single_row_partitions(backend):
     """rows_per_partition=1 — the degenerate partition geometry."""

@@ -273,6 +273,35 @@ def test_crash_recovery_bit_identical_on_the_device_backend(reference, tmp_path)
     assert recovered.answers._eval_cache.device_stack().device.type == "cpu"
 
 
+@pytest.mark.parametrize("mesh", [2, 8], ids=["mesh2", "mesh8"])
+def test_crash_recovery_bit_identical_across_meshes(reference, tmp_path, mesh):
+    """The reference's plane lanes of its acceptance matrix on ``mesh``
+    logical CPU shards: the recovered Session re-shards its stack from the
+    restored host columns and answers byte-equal to a Session restored
+    from the same snapshot that never crashed."""
+    opts = DEVICE.replace(mesh=mesh)
+    root = str(tmp_path)
+    sess = _session(reference, options=opts)
+    q = WorkloadSpec(sess.table, seed=5).sample_workload(1)[0]
+    wal.save_snapshot(sess, os.path.join(root, "snapshot"))
+    delta = _delta()
+    ref = api.Session.restore(os.path.join(root, "snapshot"), options=opts)
+    wal.WriteAheadLog(os.path.join(root, "wal_ref")).append(ref.table, delta)
+    ans_ref = ref.execute(api.QuerySpec(q, budget=ref.table.num_partitions))
+    log = wal.WriteAheadLog(os.path.join(root, "wal"),
+                            injector=FaultInjector(FaultPolicy(seed=SEED).with_crash("wal.apply")))
+    with pytest.raises(InjectedCrash):
+        log.append(sess.table, delta)
+    recovered = wal.recover(root, options=opts)
+    _cols_equal(recovered.table, ref.table)
+    assert recovered.table.version == ref.table.version
+    ans_rec = recovered.execute(api.QuerySpec(q, budget=recovered.table.num_partitions))
+    assert ans_rec.estimate.tobytes() == ans_ref.estimate.tobytes()
+    assert np.array_equal(ans_rec.group_keys, ans_ref.group_keys)
+    assert ans_rec.ci_halfwidth.tobytes() == ans_ref.ci_halfwidth.tobytes()
+    assert len(recovered.answers._eval_cache.device_stack().shards) == mesh
+
+
 # --------------------------------------------------------------------------
 # across the packages
 # --------------------------------------------------------------------------
