@@ -122,3 +122,58 @@ def lss(ref, port_fb):
     from repro_torch.core.baselines import LSSSampler
 
     return LSSSampler(port_fb, forest(ref.model), int(ref.num_strata))
+
+
+# --------------------------------------------------------------------------
+# the LM substrate: the reference's param and cache pytrees
+# --------------------------------------------------------------------------
+def lm_tensor(a, device=None):
+    """A torch tensor with ``a``'s bits.  JAX's bf16 arrives from
+    `np.asarray` as ``ml_dtypes.bfloat16``, which `torch.from_numpy`
+    rejects: it goes over as int16 and is viewed as bf16, never through
+    an f32 rounding."""
+    import torch
+
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16), device=device).view(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_params(ref_params, cfg, device=None):
+    """The port's `LM` with the reference's weights, bit for bit.  The
+    reference stacks pattern slot j's blocks along a unit axis
+    (``params["slots"][j]``); unit u's slot j is the port's block
+    ``u·period + j``."""
+    from repro_torch.models import lm
+
+    model = lm.LM(cfg, device=device)
+    period = len(cfg.block_pattern)
+    state = {}
+    for name, a in _flat({k: v for k, v in ref_params.items() if k != "slots"}):
+        state[name] = lm_tensor(a, device)
+    for j, slot in enumerate(ref_params["slots"]):
+        for name, a in _flat(slot):
+            a = np.asarray(a)
+            for u in range(a.shape[0]):
+                state[f"blocks.{u * period + j}.{name}"] = lm_tensor(a[u], device)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def lm_cache(ref_cache, cfg, device=None):
+    """The port's per-layer ``[{"k", "v"}, ...]`` cache from the
+    reference's per-slot stacked one (``cache["slots"][j]["k"][u]``)."""
+    period = len(cfg.block_pattern)
+    slots = ref_cache["slots"]
+    n_units = np.asarray(slots[0]["k"]).shape[0]
+    return [{name: lm_tensor(np.asarray(slots[j][name])[u], device) for name in ("k", "v")}
+            for u in range(n_units) for j in range(period)]

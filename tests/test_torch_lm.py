@@ -1,0 +1,321 @@
+"""The port's LM substrate (`repro_torch.models`, `configs`) vs the JAX reference.
+
+Held across the two packages, on the CPU:
+
+  * the config registry: every arch's full and smoke config field for
+    field, with equal parameter counts and applicable shapes;
+  * the carry (`carry.lm_params`, `carry.lm_cache`) bit for bit;
+  * `rope`, `rmsnorm`, `chunked_attention` and `attn_decode` on the same
+    numpy inputs, within one or two bf16 steps (their f32 internals agree
+    up to summation order and the f32 transcendentals);
+  * `forward`, `prefill`, three `decode_step`s and `make_prefill_step` on
+    the same weights (numpy, in the reference's param pytree) for the
+    dense smoke configs (and one with
+    a sliding window, prompt ≤ window), at the reference's own tolerance
+    for two lowerings of the same model (``rtol=5e-2, atol=5e-2`` and a
+    correlation above 0.999, `tests/test_arch_smoke.py`): XLA rounds a
+    fused chain of bf16 ops once, torch once per op;
+  * the port's own decode-matches-forward contract, on its own init.
+
+Every other family raises `NotImplementedError` naming the roadmap item.
+"""
+import dataclasses
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.models import config as ref_config
+from repro.models import layers as ref_layers
+from repro.models import lm as ref_lm
+from repro.train import steps as ref_steps
+from repro_torch import carry, configs
+from repro_torch.models import config, layers, lm
+from repro_torch.train import steps
+
+DENSE = ("qwen1_5_0_5b", "yi_6b", "llama3_405b")
+UNPORTED = tuple(a for a in configs.all_archs() if ref_configs.get_smoke(a).family != "dense")
+TOL = dict(rtol=5e-2, atol=5e-2)  # `tests/test_arch_smoke.py::test_decode_matches_forward`
+BF16_STEP = 2.0 ** -7  # one bf16 step relative to the value (8 significant bits)
+
+
+def _bf16(a):
+    return jnp.asarray(a, jnp.bfloat16)
+
+
+def _to_port(a):
+    """The same bits in torch (bf16 by int16 view)."""
+    return carry.lm_tensor(np.asarray(a))
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def _close(ref, port, **tol):
+    a, b = _np(ref), _np(port)
+    np.testing.assert_allclose(b, a, **(tol or TOL))
+    assert np.corrcoef(a.ravel(), b.ravel())[0, 1] > 0.999
+
+
+# --------------------------------------------------------------------------
+# the config registry
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", configs.all_archs())
+def test_config_matches_reference(arch):
+    for get, ref_get in ((configs.get_config, ref_configs.get_config),
+                         (configs.get_smoke, ref_configs.get_smoke)):
+        port, ref = get(arch), ref_get(arch)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.param_count() == ref.param_count()
+        assert port.active_param_count() == ref.active_param_count()
+        assert config.applicable_shapes(port) == ref_config.applicable_shapes(ref)
+        assert (port.blocks, port.is_moe, port.is_mla, port.attention_free, port.sub_quadratic) \
+            == (ref.blocks, ref.is_moe, ref.is_mla, ref.attention_free, ref.sub_quadratic)
+
+
+def test_registry_matches_reference():
+    assert configs.all_archs() == ref_configs.all_archs()
+    assert config.SHAPES == {k: config.ShapeSpec(**dataclasses.asdict(v))
+                             for k, v in ref_config.SHAPES.items()}
+    # dashed public ids resolve as the reference's do
+    for public in ("qwen1.5-0.5b", "yi-6b", "llama3-405b", "mixtral-8x22b"):
+        assert configs.get_config(public).name == ref_configs.get_config(public).name
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_families_raise(arch):
+    cfg = configs.get_smoke(arch)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md § 1 item 10"):
+        lm.LM(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md § 1 item 10"):
+        lm.init_cache(cfg, 1, 8, "cpu")
+
+
+# --------------------------------------------------------------------------
+# the layers
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("theta", [1e4, 5e5])
+def test_rope_and_rmsnorm_match_reference(theta):
+    rng = np.random.default_rng(0)
+    x = _bf16(rng.normal(size=(2, 9, 3, 16)))
+    pos = np.broadcast_to(np.arange(40, 49), (2, 9))
+    got = layers.rope(_to_port(x), torch.as_tensor(pos), theta)
+    want = ref_layers.rope(x, jnp.asarray(pos), theta)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=BF16_STEP, atol=1e-6)
+
+    scale = _bf16(rng.normal(size=(16,)))
+    norm = layers.RMSNorm(16, device="cpu")
+    norm.scale.copy_(_to_port(scale))
+    got = layers.rmsnorm(norm, _to_port(x), 1e-5)
+    want = ref_layers.rmsnorm({"scale": scale}, x, 1e-5)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=BF16_STEP, atol=1e-6)
+
+
+ATTN_CASES = {  # name → (Sq, Sk, H, K, kwargs of chunked_attention)
+    "causal": (12, 12, 4, 4, {}),
+    "window": (12, 12, 4, 4, dict(window=5)),
+    "gqa": (12, 12, 4, 2, {}),
+    "q_offset": (4, 12, 4, 2, dict(q_offset=8)),
+    "small_chunks": (10, 10, 4, 2, dict(opts=layers.AttnOptions(4, 4, True))),
+    "full_no_skip": (10, 10, 4, 2, dict(causal=False, opts=layers.AttnOptions(4, 4, False))),
+    # a row that the mask covers whole in a visited kv chunk is NaN in both
+    # packages (`ROADMAP.md` § 3, shared with the reference): a q chunk
+    # wider than the kv chunk, and a window that starts inside a kv chunk
+    "nan_wide_q_chunk": (16, 16, 4, 2, dict(opts=layers.AttnOptions(8, 4, True))),
+    "nan_window": (10, 10, 4, 2, dict(window=4, opts=layers.AttnOptions(4, 4, True))),
+}
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_chunked_attention_matches_reference(case):
+    sq, sk, h, kh, kw = ATTN_CASES[case]
+    rng = np.random.default_rng(1)
+    q = _bf16(rng.normal(size=(2, sq, h, 16)))
+    k = _bf16(rng.normal(size=(2, sk, kh, 16)))
+    v = _bf16(rng.normal(size=(2, sk, kh, 16)))
+    ref_kw = dict(kw)
+    if "opts" in kw:
+        o = kw["opts"]
+        ref_kw["opts"] = ref_layers.AttnOptions(o.q_chunk, o.kv_chunk, o.triangle_skip)
+    got = _np(layers.chunked_attention(_to_port(q), _to_port(k), _to_port(v), **kw))
+    want = _np(jax.jit(partial(ref_layers.chunked_attention, **ref_kw))(q, k, v))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want).any() == case.startswith("nan_")
+    np.testing.assert_allclose(got, want, rtol=2 * BF16_STEP, atol=1e-2)
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_attn_decode_matches_reference(window):
+    """One token against a filled cache; ``window`` 6 is a ring of 6 slots
+    that has wrapped (position 9 at slot 3)."""
+    cfg = dataclasses.replace(configs.get_smoke("llama3_405b"), window=window, qkv_bias=True)
+    ref_cfg = dataclasses.replace(ref_configs.get_smoke("llama3_405b"), window=window,
+                                  qkv_bias=True)
+    rng = np.random.default_rng(2)
+    p = ref_layers.attn_init(jax.random.PRNGKey(0), ref_cfg)
+    p = {**p, **{b: _bf16(rng.normal(size=p[b].shape) * 0.1) for b in ("bq", "bk", "bv")}}
+    attn = layers.Attention(cfg, device="cpu")
+    for name, a in p.items():
+        getattr(attn, name).copy_(_to_port(a))
+    s_max = window or 16
+    ck = _bf16(rng.normal(size=(2, s_max, cfg.n_kv_heads, cfg.d_head)))
+    cv = _bf16(rng.normal(size=(2, s_max, cfg.n_kv_heads, cfg.d_head)))
+    x = _bf16(rng.normal(size=(2, 1, cfg.d_model)))
+    pos = 9
+    decode = jax.jit(ref_layers.attn_decode, static_argnums=2, static_argnames="window")
+    out, nk, nv = decode(p, x, ref_cfg, ck, cv, pos, window=window)
+    pk, pv = _to_port(ck), _to_port(cv)
+    got, gk, gv = layers.attn_decode(attn, _to_port(x), cfg, pk, pv, pos, window=window)
+    assert gk is pk and gv is pv  # written in place
+    np.testing.assert_allclose(_np(got), _np(out), rtol=2 * BF16_STEP, atol=1e-2)
+    np.testing.assert_allclose(_np(gk), _np(nk), rtol=BF16_STEP, atol=1e-6)
+    np.testing.assert_array_equal(_np(gv), _np(nv))
+
+
+# --------------------------------------------------------------------------
+# the model on the reference's weights
+# --------------------------------------------------------------------------
+MODELS = DENSE + ("llama3_405b+window",)
+
+
+def _cfgs(name):
+    arch, _, variant = name.partition("+")
+    cfg, ref_cfg = configs.get_smoke(arch), ref_configs.get_smoke(arch)
+    if variant == "window":  # a ring of 14 slots: the third decode step wraps
+        cfg, ref_cfg = (dataclasses.replace(c, window=14) for c in (cfg, ref_cfg))
+    return cfg, ref_cfg
+
+
+def reference_params(cfg, seed):
+    """The reference's param pytree (`lm.param_shapes`) filled from numpy:
+    normal × 1/sqrt(fan_in) weights (the embedding's fan-in is d), norm
+    scales about 1 and small biases, so that no weight is a plain 0 or 1."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, spec):
+        name = path[-1].key
+        if name == "scale":
+            a = 1.0 + 0.1 * rng.standard_normal(spec.shape)
+        elif name in ("bq", "bk", "bv"):
+            a = 0.1 * rng.standard_normal(spec.shape)
+        else:
+            fan_in = spec.shape[-1] if name == "table" else spec.shape[-2]
+            a = rng.standard_normal(spec.shape) / np.sqrt(fan_in)
+        return jnp.asarray(a, spec.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, ref_lm.param_shapes(cfg))
+
+
+@pytest.fixture(scope="module")
+def reference_runs():
+    """name → the reference's weights, tokens, forward/prefill logits and
+    three greedy decode steps (jitted: one compile each)."""
+    runs = {}
+
+    def run(name):
+        if name in runs:
+            return runs[name]
+        _, cfg = _cfgs(name)
+        params = reference_params(cfg, seed=0)
+        toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 12))
+        t = jnp.asarray(toks, jnp.int32)
+        full, _ = jax.jit(partial(ref_lm.forward, cfg))(params, t)
+        pf, cache = jax.jit(partial(ref_lm.prefill, cfg), static_argnums=2)(params, t, 20)
+        first_cache = jax.tree.map(np.asarray, cache)
+        step = jax.jit(ref_steps.make_serve_step(cfg))
+        tok, steps_out = jnp.argmax(pf[:, -1:], axis=-1).astype(jnp.int32), []
+        for i in range(3):
+            logits, cache = step(params, cache, tok, 12 + i)
+            steps_out.append((np.asarray(tok), logits))
+            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        runs[name] = dict(params=jax.tree.map(np.asarray, params), tokens=toks, forward=full,
+                          prefill=pf, cache=first_cache, steps=steps_out)
+        return runs[name]
+
+    return run
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_carry_is_bit_exact(name, reference_runs):
+    cfg, _ = _cfgs(name)
+    ref = reference_runs(name)
+    model = carry.lm_params(ref["params"], cfg, "cpu")
+    state = model.state_dict()
+    n = 0
+    for key, a in ref["params"].items():
+        if key == "slots":
+            continue
+        for sub, leaf in (a.items() if isinstance(a, dict) else [("", a)]):
+            got = state[f"{key}.{sub}" if sub else key]
+            np.testing.assert_array_equal(got.view(torch.int16).numpy(), leaf.view(np.int16))
+            n += 1
+    for u, blk in enumerate(model.blocks):
+        for part in ("norm1", "mix", "norm2", "ffn"):
+            for leaf, a in ref["params"]["slots"][0][part].items():
+                got = getattr(getattr(blk, part), leaf)
+                np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                              a[u].view(np.int16))
+                n += 1
+    assert n == len(state)
+    assert lm.param_bytes(model) == 2 * sum(a.size for a in jax.tree.leaves(ref["params"]))
+    cache = carry.lm_cache(ref["cache"], cfg, "cpu")
+    assert len(cache) == cfg.n_layers
+    for u, c in enumerate(cache):
+        for name_kv in ("k", "v"):
+            want = ref["cache"]["slots"][0][name_kv][u]
+            np.testing.assert_array_equal(c[name_kv].view(torch.int16).numpy(),
+                                          want.view(np.int16))
+
+
+@pytest.mark.parametrize("name", MODELS)
+@torch.inference_mode()
+def test_lm_matches_reference(name, reference_runs):
+    cfg, _ = _cfgs(name)
+    ref = reference_runs(name)
+    model = carry.lm_params(ref["params"], cfg, "cpu")
+    tokens = torch.as_tensor(ref["tokens"])
+    logits, aux = lm.forward(cfg, model, tokens)
+    _close(ref["forward"], logits)
+    assert float(aux["lb_loss"]) == 0.0 and float(aux["z_loss"]) == 0.0
+    # the reference's prefill_step is its forward's last row
+    _close(ref["forward"][:, -1], steps.make_prefill_step(cfg)(model, {"tokens": tokens}))
+    pf, cache = lm.prefill(cfg, model, tokens, 20)
+    _close(ref["prefill"], pf)
+    # the prefill's cache, and decoding from the reference's own cache
+    for c, want_k in zip(cache, ref["cache"]["slots"][0]["k"]):
+        _close(want_k, c["k"])
+    ref_cache = carry.lm_cache(ref["cache"], cfg, "cpu")
+    serve_step = steps.make_serve_step(cfg)
+    for i, (tok, want) in enumerate(ref["steps"]):
+        tok = torch.as_tensor(tok, dtype=torch.int64)
+        got, cache = serve_step(model, cache, tok, 12 + i)
+        _close(want, got)
+        got, ref_cache = lm.decode_step(cfg, model, ref_cache, tok, 12 + i)
+        _close(want, got)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+@torch.inference_mode()
+def test_decode_matches_forward(arch):
+    """Greedy (prefill + decode) logits == the full forward's, on the
+    port's own init (the reference's contract, `tests/test_arch_smoke.py`)."""
+    cfg = configs.get_smoke(arch)
+    model = lm.init_params(cfg, torch.Generator().manual_seed(3))
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab, (1, 12)))
+    pf, cache = lm.prefill(cfg, model, tokens, 32)
+    seq, steps_out = tokens, []
+    tok = torch.argmax(pf[:, -1:], dim=-1)
+    for i in range(4):
+        seq = torch.cat([seq, tok], dim=1)
+        logits, cache = lm.decode_step(cfg, model, cache, tok, 12 + i)
+        steps_out.append(logits[:, 0])
+        tok = torch.argmax(logits, dim=-1)
+    full, _ = lm.forward(cfg, model, seq)
+    _close(full[:, 11], pf[:, -1])
+    for i, got in enumerate(steps_out):
+        _close(full[:, 12 + i], got)
