@@ -38,9 +38,11 @@ Phases, each fatal on failure:
 5. the Session path at full size: ``Session(table).prepare(WorkloadSpec
    (table), num_train_queries=48)`` with the default ``PickerConfig``,
    then ``Session.execute(QuerySpec(q, error_bound=0.05))`` on held-out
-   queries, under ``torch.profiler``: every kernel launched, wall times of
-   prepare's parts, execute times, partitions read, coverage and error
-   against the exact answers, beside a 5%-uniform partition sample;
+   queries, the executes under ``torch.profiler`` (their parts' host
+   walls and the device's busy time): every kernel launched, the walls of
+   ``Session(table)`` and ``prepare``, execute times, partitions read,
+   coverage and error against the exact answers, beside a 5%-uniform
+   partition sample;
 6. the first trees of the first funnel model fitted again on the card
    and on the host: the forests must be bit-equal; and tree_hist on
    those binned training codes at level 0 and at the leaf sums of the
@@ -111,13 +113,26 @@ Phases, each fatal on failure:
    ``[aqp]`` ``main(["--aqp"])`` at its defaults on the card, its kernel
    launches counted, with the same ``mean reads`` and ``modes`` as on
    the CPU;
-12. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
+12. the LM training path: ``[train]`` `repro_torch.launch.train.main` at
+   full width on the card for qwen1.5-0.5b (the launcher's default),
+   ``--steps 6 --batch 8 --ckpt-every 3`` into a temporary directory: the
+   token store's and the PS³ plane's build times, each step's time and
+   tokens/s, the first and last loss, parameter and optimizer-state
+   bytes, peak device memory and each checkpoint save's time and bytes;
+   checked (a) ``step_3`` alone resumed to step 6 gives the uninterrupted
+   run's losses at the reference's resume tolerance (``TRAIN_TOL``), (b)
+   the first 2 layers of the trained model at batch 1, card against CPU:
+   `lm.loss_fn` and every gradient at the CPU tests' tolerances, (c) the
+   card's plane picks the shards and weights of ``PS3DataPlane(...,
+   backend="host")`` on the CPU;
+13. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
    Each kernel's ``session_launches``, ``plane_launches``,
-   ``stream_launches``, ``serve_launches``, ``lifecycle_launches`` and
-   ``aqp_launches`` count its launches in the Session, plane, streaming,
-   serving, lifecycle and ``--aqp`` paths, and ``launches`` is their sum.
-   The LM path launches no hand-written kernel: its reference has no
-   Pallas kernel.
+   ``stream_launches``, ``serve_launches``, ``lifecycle_launches``,
+   ``aqp_launches`` and ``train_launches`` count its launches in the
+   Session, plane, streaming, serving, lifecycle, ``--aqp`` and training
+   paths, and ``launches`` is their sum.  The LM model launches no
+   hand-written kernel (its reference has no Pallas kernel); the training
+   path's launches are its PS³ plane's.
 
 A ``[time] phase N <name> <s>`` line follows every phase; ``[reduced]``
 lines list what was cut to keep the run inside its time limit.
@@ -169,6 +184,9 @@ CUTS = (
     "building its own Session(table) (ExecOptions.faults gates only the planner's chunk "
     "reads and AnswerStore's exact reads)",
     f"phase 8 [stream]: {APPENDS} timed appends after the warm-up append (6 before)",
+    "phase 5 [main]: torch.profiler traces the held-out executes only, not Session(table) "
+    "+ prepare (whose trace of 2.0 M device events took about 150 s to stop; its last "
+    "profile is in PERF.md § 5), to make room for phase 12",
 )
 
 
@@ -1111,27 +1129,26 @@ def session_path(table, args) -> tuple:
 
     held_out = WorkloadSpec(table, seed=args.seed + 1).sample_workload(args.held_out)
     _build.LAUNCHES.reset()
-    with profiler() as prof:
-        t0 = time.perf_counter()
-        sess = Session(table)
-        torch.cuda.synchronize()
-        t_store = time.perf_counter() - t0
-        sess.prepare(WorkloadSpec(table, seed=args.seed), num_train_queries=args.queries,
-                     picker_config=PickerConfig(seed=args.seed))
-        torch.cuda.synchronize()
-        t_prepare = time.perf_counter() - t0
-        planned, walls = [], []
+    t0 = time.perf_counter()
+    sess = Session(table)
+    torch.cuda.synchronize()
+    t_store = time.perf_counter() - t0
+    sess.prepare(WorkloadSpec(table, seed=args.seed), num_train_queries=args.queries,
+                 picker_config=PickerConfig(seed=args.seed))
+    torch.cuda.synchronize()
+    t_prepare = time.perf_counter() - t0
+    planned, walls = [], []
+    with profiler() as prof:  # the executes only: see CUTS
         for q in held_out:
             t = time.perf_counter()
             planned.append(sess.execute(QuerySpec(q, error_bound=ERROR_BOUND)))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
-        t_path = time.perf_counter() - t0
     launches = launches_of(SESSION_KERNELS)
     print(f"[main] Session(table) {t_store:.2f} s (sketch store), Session(table) + prepare "
           f"{t_prepare:.2f} s ({args.queries} training queries), {len(held_out)} executes "
           f"{sum(walls):.2f} s; launches {json.dumps(launches, sort_keys=True)}", flush=True)
-    print_profile(prof, t_path)
+    print_profile(prof, sum(walls))
     return sess, launches, walls, planned, held_out
 
 
@@ -2550,6 +2567,294 @@ def lm_path(card: str) -> dict:
     return aqp_serve()
 
 
+# --------------------------------------------------------------------------
+# phase 12: the LM training path on the PS³ token data plane
+# --------------------------------------------------------------------------
+TRAIN_ARCH = "qwen1.5-0.5b"  # launch/train.py's default
+TRAIN_STEPS, TRAIN_BATCH = 6, 8
+TRAIN_RESUME = 3  # the checkpoint interval, and the step the resumed run starts from
+TRAIN_FLAGS = ("--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+               "--ckpt-every", str(TRAIN_RESUME))
+TRAIN_TOL = dict(rtol=2e-2, atol=2e-2)  # the reference's resume tolerance
+# (b): the CPU tests' tolerances (`tests/test_torch_train.py`): the loss,
+# and each gradient leaf's relative L2 error (bf16: the reference's own
+# two lowerings differ by up to 4.0e-2)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 1e-3, 5e-2
+TRAIN_CUT = 2  # layers of check (b), batch 1
+TRAIN_KERNELS = tuple(k for k in SOURCES if k != "predicate_eval")
+
+
+@contextlib.contextmanager
+def train_probe(rec: dict):
+    """Times the parts of `launch/train.main` without changing them: the
+    token store, the plane (kept, with its first selection), each train
+    step (the device synchronised), each checkpoint save (the call: the
+    host copy, and each write with its bytes), the watchdog's verdicts and
+    the model (`lm.init_params`)."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint
+
+    def timed(fn, sink):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sink.append(time.perf_counter() - t)
+            return out
+        return run
+
+    def plane(*a, **kw):
+        t = time.perf_counter()
+        out = plane_cls(*a, **kw)
+        rec["plane_s"].append(time.perf_counter() - t)
+        rec["planes"].append((out, out.shard_ids.copy(), out.weights.copy()))
+        return out
+
+    def make_train_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*sa):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*sa)
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t)
+            return out
+        return run
+
+    def write(self, step, flat, extra):
+        t = time.perf_counter()
+        out = write_fn(self, step, flat, extra)
+        path = os.path.join(self.dir, f"step_{step}", "arrays.npz")
+        rec["writes"].append((step, time.perf_counter() - t, os.path.getsize(path)))
+        return out
+
+    def observe(self, dt):
+        fired = observe_fn(self, dt)
+        rec["fired"].append(fired)
+        return fired
+
+    def init_params(*a, **kw):
+        model = init_fn(*a, **kw)
+        rec["models"].append(model)
+        return model
+
+    make_step, write_fn = train.steps_mod.make_train_step, checkpoint.Checkpointer._write
+    observe_fn, init_fn = train.StepWatchdog.observe, lm.init_params
+    plane_cls = train.PS3DataPlane
+    for k in ("plane_s", "planes", "step_s", "saves", "writes", "fired", "models", "store_s"):
+        rec.setdefault(k, [])
+    with mock.patch.object(train, "PS3DataPlane", plane), \
+            mock.patch.object(train, "make_token_store",
+                              timed(train.make_token_store, rec["store_s"])), \
+            mock.patch.object(train.steps_mod, "make_train_step", make_train_step), \
+            mock.patch.object(checkpoint.Checkpointer, "save",
+                              timed(checkpoint.Checkpointer.save, rec["saves"])), \
+            mock.patch.object(checkpoint.Checkpointer, "_write", write), \
+            mock.patch.object(train.StepWatchdog, "observe", observe), \
+            mock.patch.object(lm, "init_params", init_params):
+        yield rec
+
+
+def state_bytes(manifest: dict) -> dict:
+    """Bytes of the checkpoint's ``params/`` and ``opt/`` leaves."""
+    import numpy as np
+
+    out = {"params": 0, "opt": 0}
+    for path in manifest["paths"]:
+        dtype = manifest["dtypes"][path]
+        size = 2 if dtype == "bfloat16" else np.dtype(dtype).itemsize
+        out[path.split("/", 1)[0]] += int(np.prod(manifest["shapes"][path])) * size
+    return out
+
+
+def kmeans_calls(plane) -> tuple:
+    """The plane's pick made again, with each KMeans call's assignment,
+    exemplars and cluster sizes (numpy) → (selection, calls)."""
+    from unittest import mock
+
+    from repro_torch.core import clustering
+
+    calls, body = [], clustering._exemplar_body
+
+    def record(x, assign, center_valid):
+        ex, counts, valid = body(x, assign, center_valid)
+        calls.append(tuple(t.cpu().numpy() for t in (assign, ex, counts, valid)))
+        return ex, counts, valid
+
+    with mock.patch.object(clustering, "_exemplar_body", record):
+        sel = plane.picker.pick(plane.query, plane.budget)
+    return sel, calls
+
+
+def plane_vs_host(plane, shard_ids, weights, host) -> str:
+    """(c): the card's shard ids and f64 weights equal the host backend's,
+    but for exemplars of 2-member clusters: the member nearest the
+    cluster's median, which for two members is their midpoint, so both
+    are equally near in exact arithmetic and rounding picks one
+    (`ROADMAP.md` § 3, the KMeans-tie class).  Such a pick must come from
+    equal KMeans assignments, with equal group sizes and budgets; any
+    other difference raises."""
+    import numpy as np
+
+    card_sel, card_calls = kmeans_calls(plane)
+    host_sel, host_calls = kmeans_calls(host)
+    if not np.array_equal(card_sel.ids, shard_ids):
+        raise AssertionError(f"train plane: a second pick on the card gave {card_sel.ids}, "
+                             f"not {shard_ids}")
+    same = (np.array_equal(weights, host.weights) and len(card_calls) == len(host_calls)
+            and card_sel.group_sizes == host_sel.group_sizes
+            and card_sel.group_budgets == host_sel.group_budgets)
+    ties = 0
+    for (a_c, ex_c, n_c, v_c), (a_h, ex_h, n_h, v_h) in zip(card_calls, host_calls):
+        same &= (np.array_equal(a_c, a_h) and np.array_equal(n_c, n_h)
+                 and np.array_equal(v_c, v_h))
+        for c in np.flatnonzero(v_c & (ex_c != ex_h)):
+            same &= bool(n_c[c] == 2 and a_c[ex_c[c]] == c and a_c[ex_h[c]] == c)
+            ties += 1
+    differ = int((shard_ids != host.shard_ids).sum())
+    if not same or differ != ties:
+        raise AssertionError(f"train plane: card {shard_ids} {weights}, host "
+                             f"{host.shard_ids} {host.weights}")
+    tie_note = "" if not ties else (
+        f" but for {ties} exemplar(s) of 2-member clusters (card "
+        f"{shard_ids[shard_ids != host.shard_ids].tolist()}, host "
+        f"{host.shard_ids[shard_ids != host.shard_ids].tolist()}: an exact tie, the same "
+        f"KMeans assignments)")
+    return (f"the card's plane picks the host backend's {len(shard_ids)} shards{tie_note}, "
+            f"with equal f64 weights, group sizes and budgets")
+
+
+def train_card_vs_cpu(model, plane) -> str:
+    """(b): the first ``TRAIN_CUT`` layers of the trained model, on the
+    card and on the CPU, at batch 1: `lm.loss_fn` and every gradient."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    batch = next(plane.batches(1, 1, seed=1))
+    out = {}
+    for where in ("card", "cpu"):
+        dev = model.embed.table.device if where == "card" else torch.device("cpu")
+        cut = cut_model(model, TRAIN_CUT, dev).requires_grad_(True)
+        loss, _ = lm.loss_fn(cut.cfg, cut, train.batch_tensors(batch, dev))
+        names, leaves = zip(*cut.named_parameters())
+        grads = torch.autograd.grad(loss, leaves)
+        out[where] = (float(loss.detach()), {n: g.float().cpu().numpy().astype(np.float64)
+                                    for n, g in zip(names, grads)})
+        del cut, grads
+    (loss_card, g_card), (loss_cpu, g_cpu) = out["card"], out["cpu"]
+    rel = {n: float(np.linalg.norm(g_card[n] - g_cpu[n]) / max(np.linalg.norm(g_cpu[n]), 1e-30))
+           for n in g_cpu}
+    worst = max(rel, key=rel.get)
+    if not abs(loss_card - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu) \
+            or rel[worst] > TRAIN_GRAD_REL_L2:
+        raise AssertionError(f"train card vs CPU: loss {loss_card} vs {loss_cpu}; gradient "
+                             f"{worst} relative L2 error {rel[worst]}")
+    return (f"loss {loss_card:.6f} vs {loss_cpu:.6f} (rtol {TRAIN_LOSS_RTOL:g}); {len(rel)} "
+            f"gradient leaves, worst relative L2 error {rel[worst]:.4g} ({worst}; at most "
+            f"{TRAIN_GRAD_REL_L2:g})")
+
+
+def train_path(card: str) -> dict:
+    """Phase 12: `launch/train.main` at full width on the card, checked
+    (a) by a resumed run, (b) on the first layers against the CPU, (c) its
+    plane against the host backend's on the CPU → the run's launches."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.tokens import PS3DataPlane
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.train.checkpoint import Checkpointer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    t_phase = time.perf_counter()
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        run_a, out = {}, io.StringIO()
+        _build.LAUNCHES.reset()
+        t = time.perf_counter()
+        with train_probe(run_a), contextlib.redirect_stdout(out):
+            losses = train.main(["--arch", TRAIN_ARCH, *TRAIN_FLAGS,
+                                 "--ckpt-dir", os.path.join(root, "a")])
+        wall = time.perf_counter() - t
+        launches = launches_of(TRAIN_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        for line in out.getvalue().splitlines():
+            print(f"[train] main: {line}", flush=True)
+        plane, shard_ids, weights = run_a["planes"][0]
+        model = run_a["models"][0]
+        b, s = TRAIN_BATCH, plane.store.tokens.shape[2] - 1
+        nbytes = state_bytes(Checkpointer(os.path.join(root, "a")).manifest(TRAIN_STEPS))
+        print(f"[train] {model.cfg.name} ({model.cfg.n_layers} layers, d_model "
+              f"{model.cfg.d_model}, {model.cfg.n_heads} heads, vocab {model.cfg.vocab}), "
+              f"batch {b} x {s} tokens: token store {run_a['store_s'][0]:.2f} s, plane "
+              f"{run_a['plane_s'][0]:.2f} s ({len(shard_ids)} of {plane.store.n_shards} "
+              f"shards), main() {wall:.2f} s; parameters {nbytes['params']} bytes, optimizer "
+              f"state {nbytes['opt']} bytes; max_memory_allocated {peak - before} bytes above "
+              f"the {before} the earlier phases hold; card {card}", flush=True)
+        for i, (dt, loss) in enumerate(zip(run_a["step_s"], losses), start=1):
+            print(f"[train] step {i}: {dt * 1e3:.2f} ms, {b * s / dt:.1f} tokens/s, loss "
+                  f"{loss:.6f}", flush=True)
+        print(f"[train] loss first {losses[0]:.6f} last {losses[-1]:.6f}", flush=True)
+        for call_s, (step, write_s, size) in zip(run_a["saves"], run_a["writes"]):
+            print(f"[ckpt] step {step}: save() {call_s * 1e3:.2f} ms (host copy, and the write "
+                  f"when blocking), write {write_s * 1e3:.2f} ms, {size} bytes", flush=True)
+        print(f"[train] launches {json.dumps(launches, sort_keys=True)}", flush=True)
+
+        # (c) the card's plane against the host backend's on the CPU
+        t = time.perf_counter()
+        host = PS3DataPlane(plane.store, seed=0, backend="host", device="cpu")
+        check_c = (f"(c) {plane_vs_host(plane, shard_ids, weights, host)} "
+                   f"({time.perf_counter() - t:.2f} s)")
+
+        # (a) resume from step 3 alone
+        resumed = os.path.join(root, "b")
+        os.makedirs(resumed)
+        shutil.copytree(os.path.join(root, "a", f"step_{TRAIN_RESUME}"),
+                        os.path.join(resumed, f"step_{TRAIN_RESUME}"))
+        shutil.rmtree(os.path.join(root, "a"))
+        run_b, out = {}, io.StringIO()
+        t = time.perf_counter()
+        with train_probe(run_b), contextlib.redirect_stdout(out):
+            tail = train.main(["--arch", TRAIN_ARCH, *TRAIN_FLAGS, "--ckpt-dir", resumed,
+                               "--resume"])
+        wall_b = time.perf_counter() - t
+        np.testing.assert_allclose(tail, losses[TRAIN_RESUME:], **TRAIN_TOL)
+        diff = max(abs(x - y) for x, y in zip(tail, losses[TRAIN_RESUME:]))
+        check_a = (f"(a) resumed at step {TRAIN_RESUME}: losses {[round(x, 6) for x in tail]} "
+                   f"against {[round(x, 6) for x in losses[TRAIN_RESUME:]]}, max difference "
+                   f"{diff:.3g} (rtol {TRAIN_TOL['rtol']} atol {TRAIN_TOL['atol']}); main() "
+                   f"{wall_b:.2f} s; the watchdog fired {sum(run_a['fired'])} time(s) in the "
+                   f"first run and {sum(run_b['fired'])} in the resumed one")
+
+        # (b) the first layers of the trained model, card against CPU
+        t = time.perf_counter()
+        check_b = (f"(b) the first {TRAIN_CUT} layers of the trained model, batch 1, card "
+                   f"vs CPU: {train_card_vs_cpu(model, plane)}; "
+                   f"{time.perf_counter() - t:.2f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[check] train: {check_a}; {check_b}; {check_c}", flush=True)
+    print(f"[train] the training phase took {time.perf_counter() - t_phase:.2f} s", flush=True)
+    del model, run_a, run_b
+    torch.cuda.empty_cache()
+    return launches
+
+
 class PhaseClock:
     """Prints ``[time] phase N <name> <s>`` after each phase."""
 
@@ -2643,6 +2948,8 @@ def main(argv=None) -> int:
     clock.done(10, "lifecycle")
     aqp = lm_path(card)
     clock.done(11, "lm")
+    trained = train_path(card)
+    clock.done(12, "train")
     for name, rec in records.items():
         rec["session_launches"] = launches.get(name, 0)
         rec["plane_launches"] = plane.get(name, 0)
@@ -2650,9 +2957,11 @@ def main(argv=None) -> int:
         rec["serve_launches"] = serve.get(name, 0)
         rec["lifecycle_launches"] = life.get(name, 0)
         rec["aqp_launches"] = aqp.get(name, 0)
+        rec["train_launches"] = trained.get(name, 0)
         rec["launches"] = (rec["session_launches"] + rec["plane_launches"]
                            + rec["stream_launches"] + rec["serve_launches"]
-                           + rec["lifecycle_launches"] + rec["aqp_launches"])
+                           + rec["lifecycle_launches"] + rec["aqp_launches"]
+                           + rec["train_launches"])
 
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(f"[time] total {time.perf_counter() - clock.t0:.2f}", flush=True)

@@ -177,3 +177,42 @@ def lm_cache(ref_cache, cfg, device=None):
     n_units = np.asarray(slots[0]["k"]).shape[0]
     return [{name: lm_tensor(np.asarray(slots[j][name])[u], device) for name in ("k", "v")}
             for u in range(n_units) for j in range(period)]
+
+
+def _map_arrays(tree, fn):
+    """``fn`` over the arrays of a nested dict / tuple / list tree, the
+    containers kept (an int8 state's ``(q, scale)`` pair stays a pair)."""
+    if isinstance(tree, dict):
+        return {k: _map_arrays(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_arrays(v, fn) for v in tree)
+    return fn(np.asarray(tree))
+
+
+def _lm_tree(ref_tree, cfg, device):
+    """A tree over the reference's params structure (``slots`` stacked
+    along the unit axis) in the port's `lm.param_tree` structure (a
+    ``blocks`` list in layer order)."""
+    from repro_torch.models import lm
+
+    period, n_units, _ = lm._units(cfg)
+    out = {k: _map_arrays(v, lambda a: lm_tensor(a, device))
+           for k, v in ref_tree.items() if k != "slots"}
+    slots = ref_tree["slots"]
+    out["blocks"] = [_map_arrays(slots[j], lambda a, u=u: lm_tensor(a[u], device))
+                     for u in range(n_units) for j in range(period)]
+    return out
+
+
+def train_state(ref_params, ref_opt_state, cfg, device=None):
+    """The port's AdamW state (`repro_torch.train.optimizer`) from the
+    reference's: the ``m``/``v`` trees, int8 ``(q, scale)`` pairs included,
+    unstacked per block as `lm_params` unstacks ``params["slots"]``, and
+    the int32 ``step``.  The trees follow `lm.param_tree` of
+    ``lm_params(ref_params, cfg)``."""
+    if set(ref_opt_state["m"]) != set(ref_params):
+        raise ValueError(f"state keys {sorted(ref_opt_state['m'])} are not the params' "
+                         f"{sorted(ref_params)}")
+    return {"m": _lm_tree(ref_opt_state["m"], cfg, device),
+            "v": _lm_tree(ref_opt_state["v"], cfg, device),
+            "step": lm_tensor(np.asarray(ref_opt_state["step"]), device)}

@@ -646,3 +646,32 @@ class SketchStore:
                         self._sk = gather_sketches(self._sk, self.table, np.asarray(ev[1]))
         self._version = self.table.version
         return self._sk
+
+
+def sketch_storage_bytes(table: Table, sk: TableSketches) -> dict[str, float]:
+    """Average bytes per partition, itemized like Table 4."""
+    n = table.num_partitions
+    hist = meas = akmv = hh = 0.0
+    for spec in table.schema:
+        cs = sk.columns[spec.name]
+        if spec.kind == NUMERIC:
+            hist += (NUM_BUCKETS + 1) * 8 * n
+            meas += 9 * 8 * n
+        else:
+            # small-domain columns stored exactly (paper §3.2 special case)
+            hist += min(spec.cardinality, 256) * (8 + 4) * n
+        # AKMV: k min-hashes (8B) + counts (4B); if ndv<k, proportional.
+        kk = np.minimum(cs.ndv, AKMV_K)
+        akmv += float(np.sum(kk * (8 + 4)))
+        if cs.hh_items is not None:
+            hh += sum(len(d) * (8 + 4) for d in cs.hh_items)
+        if cs.bitmap is not None:
+            hh += cs.bitmap.shape[1] / 8 * n
+    total = hist + meas + akmv + hh
+    return {
+        "total_kb": total / n / 1024,
+        "histogram_kb": hist / n / 1024,
+        "hh_kb": hh / n / 1024,
+        "akmv_kb": akmv / n / 1024,
+        "measure_kb": meas / n / 1024,
+    }

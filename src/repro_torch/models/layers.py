@@ -18,7 +18,10 @@ packages can be compared number for number):
 Every module takes an explicit `torch.Generator` for its init (normal ×
 1/sqrt(fan_in), the reference's distribution, not its bits) or None to
 allocate its tensors uninitialised for `repro_torch.carry.lm_params` to
-fill.  Parameters do not require grad: this is the serving path.
+fill.  Parameters are built with ``requires_grad`` False, which the
+serving path keeps (it also runs under `torch.inference_mode`); the
+training path (`repro_torch.train.steps.make_train_step`) turns it on for
+the model it trains.  `remat` is the reference's `jax.checkpoint`.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 DTYPE = torch.bfloat16
 
@@ -67,6 +71,16 @@ def dense_init(generator, shape, scale_axis=0, dtype=DTYPE, device=None):
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its internals recomputed in the backward instead
+    of saved (the reference's `jax.checkpoint`) where autograd records; a
+    plain call where it does not (serving, `torch.no_grad`).  The
+    recomputation runs the same ops, so the numbers do not change."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _f32(x) -> float:
@@ -177,6 +191,11 @@ def _combine(acc, new):
     return m, l0 * a0 + l1 * a1, o0 * a0[..., None] + o1 * a1[..., None]
 
 
+def _kv_step(m, l, o, q, k, v, bias):
+    """The kv-chunk body: one partial folded into the running (m, l, o)."""
+    return _combine((m, l, o), _block_attn(q, k, v, bias))
+
+
 def _inv_sqrt(d: int) -> float:
     return _f32(np.float32(1.0) / np.sqrt(np.float32(d)))  # the reference's f32 scale
 
@@ -251,9 +270,11 @@ def chunked_attention(
             chunks = range(lo, hi)
         else:
             chunks = range(nk)
+        # remat the kv-chunk body: backward recomputes the (Tq × Tk) block
+        # probabilities instead of saving one per kv chunk (flash-style)
         for ki in chunks:
-            part = _block_attn(qblk, kt_chunks[:, :, ki], vt_chunks[:, :, ki], bias_for(qi, ki))
-            acc = _combine(acc, part)
+            acc = remat(_kv_step, *acc, qblk, kt_chunks[:, :, ki], vt_chunks[:, :, ki],
+                        bias_for(qi, ki))
         m, l, o = acc
         return o / torch.clamp_min(l, 1e-30)[..., None]
 

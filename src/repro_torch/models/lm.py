@@ -1,7 +1,9 @@
 """Model assembly: the dense decoder LM behind the reference's API.
 
   init_params(cfg, generator, device)       → LM (an nn.Module)
+  param_tree(params)                        → its parameters as a nested tree
   forward(cfg, params, tokens)              → (logits, aux)
+  loss_fn(cfg, params, batch)               → (scalar, metrics)
   prefill(cfg, params, tokens, max_len)     → (logits, cache)
   decode_step(cfg, params, cache, tok, pos) → (logits, cache)
 
@@ -34,8 +36,8 @@ from repro_torch.models.layers import (
     embed,
     mlp,
     pin_f32_accumulation,
+    remat,
     rmsnorm,
-    unembed,
 )
 
 
@@ -138,6 +140,20 @@ def param_bytes(params: LM) -> int:
     return sum(p.numel() * p.element_size() for p in params.parameters())
 
 
+def param_tree(module: nn.Module):
+    """The module's parameters (the tensors themselves) as a nested tree:
+    a dict per module, a list per `nn.ModuleList` — ``{"embed": {"table"},
+    "final_norm": {"scale"}, "head"?, "blocks": [{"norm1", "mix", "norm2",
+    "ffn"}, ...]}`` for the LM.  The optimizer state and the checkpoint
+    paths (``blocks/0/mix/wq``) follow it."""
+    if isinstance(module, nn.ModuleList):
+        return [param_tree(m) for m in module]
+    out = dict(module.named_parameters(recurse=False))
+    for name, child in module.named_children():
+        out[name] = param_tree(child)
+    return out
+
+
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
@@ -145,28 +161,104 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
-def forward_hidden(cfg: ModelConfig, params: LM, tokens):
+def _unit(cfg, blocks, positions, x):
+    for blk in blocks:
+        x, _ = _block_apply(blk, x, cfg, positions=positions)
+    return x
+
+
+def forward_hidden(cfg: ModelConfig, params: LM, tokens, *, remat_units: bool = False):
     """Final-norm hidden states (B, S, d) and the aux losses (zeros: no
-    experts).  tokens: (B, S) integers."""
+    experts).  tokens: (B, S) integers.  ``remat_units`` checkpoints each
+    pattern unit: its backward recomputes the unit's internals and only
+    the bf16 carries are saved across layers (the reference's module
+    flag ``REMAT_UNITS``, held per call here)."""
     pin_f32_accumulation()
     x = embed(params.embed, tokens).to(DTYPE)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
-    for blk in params.blocks:
-        x, _ = _block_apply(blk, x, cfg, positions=positions)
+    period = len(cfg.block_pattern)
+    for u in range(0, len(params.blocks), period):
+        blocks = params.blocks[u:u + period]
+        if remat_units:
+            x = remat(_unit, cfg, blocks, positions, x)
+        else:
+            x = _unit(cfg, blocks, positions, x)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, {"lb_loss": zero, "z_loss": zero}
 
 
+def _head_table(cfg, params: LM):
+    """The (d, vocab) output matrix: the embedding's transpose when tied."""
+    return params.embed.table.t() if cfg.tie_embeddings else params.head
+
+
 def _logits(cfg, params: LM, x):
-    return unembed(params.embed, x) if cfg.tie_embeddings else x @ params.head
+    return x @ _head_table(cfg, params)
 
 
 def forward(cfg: ModelConfig, params: LM, tokens):
     """Full-sequence token logits (test/serve path — materializes logits)."""
     x, aux = forward_hidden(cfg, params, tokens)
     return _logits(cfg, params, x), aux
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+CE_CHUNK = 1024  # sequence-chunked cross entropy (never materialize logits)
+
+
+def _ce_chunk(hs, head, ts, vs, wn):
+    """One chunk's weighted nll and z-loss sums: bf16 logits, f32 LSE."""
+    logits = (hs @ head).float()  # (B, C, V)
+    lse = torch.logsumexp(logits, dim=-1)  # (B, C)
+    gold = torch.gather(logits, -1, ts[..., None].long())[..., 0]
+    nll = (lse - gold) * vs[None, :]
+    return (torch.sum(nll * wn[:, None]),
+            torch.sum((lse * vs[None, :]) ** 2 * wn[:, None]))
+
+
+def chunked_ce(h, head, targets, weights=None, chunk=CE_CHUNK):
+    """Sequence-chunked softmax CE: (B,S,d)·(d,V) → scalar without ever
+    holding the (B, S, V) f32 logits — per chunk bf16 logits + f32 LSE,
+    rematerialized in the backward (`remat` around the chunk body).
+
+    Returns (weighted mean nll, mean lse² for z-loss), both divided by
+    ``S`` (not by the valid-token count), as the reference does.
+    """
+    b, s, d = h.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = nn.functional.pad(h, (0, 0, 0, pad))
+        targets = nn.functional.pad(targets, (0, pad))
+    nc = h.shape[1] // chunk
+    valid = (torch.arange(h.shape[1], device=h.device) < s).float()
+    w = (torch.ones((b,), dtype=torch.float32, device=h.device) if weights is None
+         else weights.float())
+    wn = w / torch.clamp_min(w.sum(), 1e-9)
+    nll_sum = zl_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        nll, zl = remat(_ce_chunk, h[:, sl], head, targets[:, sl], valid[sl], wn)
+        nll_sum, zl_sum = nll_sum + nll, zl_sum + zl
+    return nll_sum / s, zl_sum / s
+
+
+def loss_fn(cfg: ModelConfig, params: LM, batch, *, remat_units: bool = False):
+    """batch: {tokens, targets, loss_weights?} tensors → (loss, metrics).
+
+    loss_weights (B,) are the PS³ data-plane partition weights (§2.4
+    estimator applied to the training objective: weighted per-sequence
+    CE).  ``remat_units`` checkpoints each unit (`forward_hidden`).
+    """
+    h, aux = forward_hidden(cfg, params, batch["tokens"], remat_units=remat_units)
+    loss, zl = chunked_ce(h, _head_table(cfg, params), batch["targets"],
+                          batch.get("loss_weights"))
+    total = loss + cfg.router_aux_coef * aux["lb_loss"] + 1e-4 * (aux["z_loss"] + zl)
+    return total, {"ce": loss, **aux}
 
 
 # --------------------------------------------------------------------------

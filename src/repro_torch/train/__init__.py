@@ -1,1 +1,2 @@
-"""Step functions over the LM substrate (the serving half: `steps`)."""
+"""Step functions over the LM substrate (`steps`), AdamW (`optimizer`) and
+the checkpointer (`checkpoint`)."""

@@ -16,7 +16,9 @@ histogram_range launch over the first stack rows gives the bits a full
 launch gives them, and fused_eval with a predicate every row passes
 gives group_aggregate's bits (one shared aggregation).  The device GBDT fit on the card exports the
 host fit's forest bit for bit.  A stream of appends folded on the card
-equals a cold rebuild of the grown table bit for bit.
+equals a cold rebuild of the grown table bit for bit.  A qwen-smoke train
+step on the card agrees with the CPU (the loss, every gradient and two
+steps' losses, at the CPU parity tests' tolerances).
 """
 import numpy as np
 import pytest
@@ -930,3 +932,46 @@ def test_plane_across_devices_is_bit_equal(cuda, cuda2, monkeypatch):
                                  layout="random", seed=3)
             append_partitions(table, delta.columns)
     assert store._eval_cache.stack_appends == 1
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """A qwen-smoke train step on the card against the CPU, from the same
+    weights and batches: `lm.loss_fn` at ``rtol=1e-3`` and each gradient
+    leaf within a relative L2 error of ``5e-2`` (two bf16 lowerings; the
+    CPU tests' tolerances, `tests/test_torch_train.py`), then two
+    `make_train_step` steps whose losses agree at ``rtol=2e-2``."""
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    cfg = get_smoke("qwen1_5_0_5b")
+    models = {"cpu": lm.init_params(cfg, torch.Generator().manual_seed(0))}
+    models["card"] = copy.deepcopy(models["cpu"]).to(cuda)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (3, 4, 17))
+    batches = [{"tokens": t[:, :-1], "targets": t[:, 1:],
+                "loss_weights": rng.uniform(0.2, 2.0, 4).astype(np.float32)} for t in toks]
+    grads, losses = {}, {}
+    ocfg = opt.AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=6)
+    for where, model in models.items():
+        dev = cuda if where == "card" else torch.device("cpu")
+        model.requires_grad_(True)
+        loss, _ = lm.loss_fn(cfg, model, batch_tensors(batches[0], dev))
+        names, leaves = zip(*model.named_parameters())
+        grads[where] = dict(zip(names, (g.float().cpu() for g in
+                                        torch.autograd.grad(loss, leaves))))
+        losses[where] = [float(loss.detach())]
+        step = steps.make_train_step(cfg, ocfg, steps.TrainOptions(remat=False))
+        state = opt.init_state(ocfg, lm.param_tree(model))
+        for batch in batches[1:]:
+            model, state, metrics = step(model, state, batch_tensors(batch, dev))
+            losses[where].append(float(metrics["loss"]))
+    np.testing.assert_allclose(losses["card"][0], losses["cpu"][0], rtol=1e-3)
+    np.testing.assert_allclose(losses["card"][1:], losses["cpu"][1:], rtol=2e-2)
+    for name, want in grads["cpu"].items():
+        rel = float((grads["card"][name] - want).norm() / want.norm().clamp_min(1e-30))
+        assert rel <= 5e-2, (name, rel)
