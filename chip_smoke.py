@@ -110,9 +110,18 @@ Phases, each fatal on failure:
    generated tokens against the prefill and decode logits at every
    generated position, (b) the first 2 layers on the card against the
    CPU at batch 1, both at the reference's tolerance (``LM_TOL``); then
-   ``[aqp]`` ``main(["--aqp"])`` at its defaults on the card, its kernel
-   launches counted, with the same ``mean reads`` and ``modes`` as on
-   the CPU;
+   the MoE family: `launch/serve.main` at mixtral-8x22b's and
+   deepseek-v2-236b's smoke configs on the card, and `serve_loop` at
+   full width on their first ``MOE_LAYERS`` layers (seeded random
+   weights drawn on the card; each MoE call's ``drop_frac``, each decode
+   step against its weight-read bound, a warm rerun), checked (b) on 2
+   layers card against CPU at the published capacity and (a) decoding
+   against the forward at a capacity that drops nothing, each time with
+   the two runs' routing compared token by token (a token routed apart
+   must see router logits within ``LM_TOL``) and the logits compared on
+   one run's routing decisions; then ``[aqp]`` ``main(["--aqp"])`` at
+   its defaults on the card, its kernel launches counted, with the same
+   ``mean reads`` and ``modes`` as on the CPU;
 12. the LM training path: ``[train]`` `repro_torch.launch.train.main` at
    full width on the card for qwen1.5-0.5b (the launcher's default),
    ``--steps 6 --batch 8 --ckpt-every 3`` into a temporary directory: the
@@ -2391,7 +2400,8 @@ def lifecycle_path(sess, held_out, stream_keys, args) -> dict:
 # phase 11: the LM substrate's serving path, and launch/serve.py --aqp
 # --------------------------------------------------------------------------
 LM_ARCHS = ("qwen1.5-0.5b", "yi-6b")  # the serve default (MHA, tied head); GQA, untied head
-LM_FLAGS = ("--batch", "4", "--prompt-len", "32", "--gen", "16")
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
+LM_FLAGS = ("--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN))
 LM_TOL = dict(rtol=5e-2, atol=5e-2)  # the reference's decode-vs-forward tolerance
 # At full width the reference's own two lowerings leave a few logits in
 # ten thousand outside LM_TOL (qwen1.5-0.5b: up to 261 of 607,744, its
@@ -2399,6 +2409,9 @@ LM_TOL = dict(rtol=5e-2, atol=5e-2)  # the reference's decode-vs-forward toleran
 # share of one in a thousand may lie outside; the correlation rule holds
 LM_OUTSIDE = 1e-3
 LM_CUT = dict(layers=2, prompt=16, steps=2)  # the card-vs-CPU check, batch 1
+# the MoE family at full width: the layers served (deepseek: its dense
+# lead and 4 MoE layers), as many as fit one card with room to spare
+MOE_LAYERS = {"mixtral-8x22b": 8, "deepseek-v2-236b": 5}
 AQP_KERNELS = ("fused_eval", "group_aggregate", "moments", "histogram_range", "bincount",
                "tree_hist", "cumsum_seq")
 
@@ -2427,43 +2440,169 @@ def summary(checks: list) -> str:
 
 
 def cut_model(model, n_layers: int, device):
-    """``model``'s embedding, first ``n_layers`` blocks, final norm and head,
-    copied onto ``device``."""
+    """``model``'s embedding, first ``n_layers`` layers (its leading dense
+    layers, then blocks from 0), final norm and head, copied onto
+    ``device``."""
     from repro_torch.models import lm
 
     cut = lm.LM(dataclasses.replace(model.cfg, n_layers=n_layers), device=device)
     cut.load_state_dict({k: v for k, v in model.state_dict().items()
-                         if not k.startswith("blocks.") or int(k.split(".")[1]) < n_layers})
+                         if not k.startswith("blocks.") or int(k.split(".")[1]) < len(cut.blocks)})
     return cut
 
 
-def lm_card_vs_cpu(model, prompts) -> str:
-    """(b): the first ``LM_CUT["layers"]`` layers on the card and on the
-    CPU, batch 1: the prefill's logits at every prompt position and
-    ``LM_CUT["steps"]`` decode steps fed the card's greedy tokens."""
+@contextlib.contextmanager
+def moe_probe(calls: list, route: bool = False, force=None):
+    """Records every `moe.moe_apply` call as a dict in ``calls``: its
+    ``drop_frac`` (a device tensor, read after the run) and, with
+    ``route``, its tokens' expert ids ``idx`` (T, k), f32 router
+    ``logits`` (T, E) and largest k + 1 probabilities ``top``.  With
+    ``force``, expert ids (T, k) a call in call order, `moe.route` picks
+    those experts (its own probabilities gathered at them and
+    renormalised, as `moe.route` renormalises its top k): the run repeats
+    another run's routing decisions.  `lm` looks both functions up in
+    `moe` at each call; nothing else changes."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.models import moe
+
+    real_route, real_apply = moe.route, moe.moe_apply
+    forced = None if force is None else iter(force)
+
+    def routed(p, xt, cfg):
+        logits, probs, gates, idx = real_route(p, xt, cfg)
+        if forced is not None:
+            idx = next(forced).to(idx.device)
+            gates = torch.gather(probs, 1, idx)
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        calls.append({"idx": idx, "logits": logits,
+                      "top": probs.topk(cfg.top_k + 1, dim=-1).values})
+        return logits, probs, gates, idx
+
+    def applied(p, x, cfg):
+        if not route:
+            calls.append({})
+        y, aux = real_apply(p, x, cfg)
+        calls[-1]["drop_frac"] = aux["drop_frac"]
+        return y, aux
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(moe, "moe_apply", applied))
+        if route or forced is not None:
+            stack.enter_context(mock.patch.object(moe, "route", routed))
+        yield calls
+
+
+def per_layer(calls: list, key: str, layers: int, b: int) -> list:
+    """`moe_probe` records of a prefill or forward of (b, S) tokens through
+    ``layers`` MoE layers, then one call a layer for each decode step →
+    each layer's ``key`` as a (b, S + steps, ...) CPU tensor."""
+    import torch
+
+    first = [c[key].cpu().reshape(b, -1, c[key].shape[-1]) for c in calls[:layers]]
+    steps = calls[layers:]
+    return [torch.cat([first[j]] + [c[key].cpu()[:, None] for c in steps[j::layers]], dim=1)
+            for j in range(layers)]
+
+
+def serve_order(calls: list, layers: int, b: int, p: int) -> list:
+    """A forward's expert ids (one call a layer over (b, S) tokens) in the
+    call order of a prefill of its first ``p`` positions and a decode step
+    for each later one: the ``force`` of `moe_probe`."""
+    full = per_layer(calls, "idx", layers, b)
+    out = [x[:, :p].reshape(b * p, -1) for x in full]
+    for pos in range(p, full[0].shape[1] if layers else p):
+        out += [x[:, pos] for x in full]
+    return out
+
+
+def routed_apart(want: list, got: list, layers: int, b: int, top_k: int):
+    """Two runs' `moe_probe` routing (as `per_layer` reads it) → (each row's
+    first position routed to another expert set (`sys.maxsize` where
+    none), the flips as (layer, row, position, the k-th and (k+1)-th
+    probabilities of ``want``)).  A flip in a later layer at a row's first
+    position or after it is its consequence.  Raises unless, at each
+    flip, the two runs' router logits agree at ``LM_TOL``: the router saw
+    the same token up to the rounding that the model's logits are
+    allowed, and only its decision at a near tie differs."""
+    import numpy as np
+
+    w_idx, g_idx = (per_layer(c, "idx", layers, b) for c in (want, got))
+    w_logits, g_logits = (per_layer(c, "logits", layers, b) for c in (want, got))
+    w_top = per_layer(want, "top", layers, b)
+    first, flips = np.full(b, sys.maxsize), []
+    for j in range(layers):
+        apart = (w_idx[j].sort(dim=-1).values != g_idx[j].sort(dim=-1).values).any(dim=-1)
+        for row, pos in zip(*np.nonzero(apart.numpy())):
+            if pos < first[row]:
+                kth, nxt = (float(v) for v in w_top[j][row, pos, top_k - 1:top_k + 1])
+                a, g = w_logits[j][row, pos], g_logits[j][row, pos]
+                if not bool(((a - g).abs() <= LM_TOL["atol"] + LM_TOL["rtol"] * a.abs()).all()):
+                    raise AssertionError(f"layer {j} row {row} position {pos}: routed to other "
+                                         f"experts (probabilities {kth} and {nxt}) from router "
+                                         f"logits {a.tolist()} against {g.tolist()}")
+                first[row] = pos
+                flips.append((j, int(row), int(pos), kth, nxt))
+    return first, flips
+
+
+def run_fed(cfg, model, prompt, max_len: int, steps: int, fed=None, force=None):
+    """`lm.prefill` of ``prompt``, then ``steps`` `lm.decode_step`s fed
+    ``fed`` ((B, 1) tokens a step; the greedy ones where None), under
+    `moe_probe` (``force``: its routing) → (the prefill's logits and each
+    step's, the tokens fed, the probe's records)."""
     import torch
 
     from repro_torch.models import lm
 
+    fed = [] if fed is None else list(fed)
+    with torch.inference_mode(), moe_probe([], route=True, force=force) as calls:
+        logits, cache = lm.prefill(cfg, model, prompt, max_len)
+        seen = [logits]
+        for i in range(steps):
+            if i == len(fed):
+                fed.append(torch.argmax(seen[-1][:, -1:], dim=-1))
+            step, cache = lm.decode_step(cfg, model, cache, fed[i].to(prompt.device),
+                                         prompt.shape[1] + i)
+            seen.append(step)
+    return seen, fed, calls
+
+
+def lm_card_vs_cpu(model, prompts) -> str:
+    """(b): the first ``LM_CUT["layers"]`` layers on the CPU and on the
+    card, batch 1: the prefill's logits at every prompt position and
+    ``LM_CUT["steps"]`` decode steps fed the CPU's greedy tokens.  An MoE
+    model's routing is compared token by token (`routed_apart`), and its
+    logits on a second card run that takes the CPU's routing decisions
+    (`moe_probe`'s ``force``), with each call's ``drop_frac``."""
     prompt = prompts[:1, :LM_CUT["prompt"]]
     max_len = LM_CUT["prompt"] + LM_CUT["steps"]
-    outs, fed = {}, []
-    for where in ("card", "cpu"):
-        cut = cut_model(model, LM_CUT["layers"], prompts.device if where == "card" else "cpu")
-        dev = cut.embed.table.device
-        with torch.inference_mode():
-            logits, cache = lm.prefill(cut.cfg, cut, prompt.to(dev), max_len)
-            seen = [logits]
-            for i in range(LM_CUT["steps"]):
-                if where == "card":
-                    fed.append(torch.argmax(seen[-1][:, -1:], dim=-1))
-                step, cache = lm.decode_step(cut.cfg, cut, cache, fed[i].to(dev),
-                                             LM_CUT["prompt"] + i)
-                seen.append(step)
-        outs[where] = [x.cpu() for x in seen]
-        del cut, cache
-    return summary([check_logits(f"card vs CPU, output {i}", want, got)
-                    for i, (got, want) in enumerate(zip(outs["card"], outs["cpu"]))])
+    t = time.perf_counter()
+    cut = cut_model(model, LM_CUT["layers"], "cpu")
+    want, fed, cpu_calls = run_fed(cut.cfg, cut, prompt.cpu(), max_len, LM_CUT["steps"])
+    n_moe = sum(blk.kind == "moe" for blk in cut.blocks)
+    t_cpu = time.perf_counter() - t
+    t = time.perf_counter()
+    cut = cut_model(model, LM_CUT["layers"], prompts.device)
+    got, _, card_calls = run_fed(cut.cfg, cut, prompt, max_len, LM_CUT["steps"], fed)
+    first, flips = routed_apart(cpu_calls, card_calls, n_moe, 1, model.cfg.top_k)
+    if n_moe:
+        got, _, card_calls = run_fed(cut.cfg, cut, prompt, max_len, LM_CUT["steps"], fed,
+                                     force=[c["idx"] for c in cpu_calls])
+    t_card = time.perf_counter() - t
+    del cut
+    # f32 means of the keep masks: equal counts agree to 1e-6 (a count
+    # apart would be 1/(T·k) ≥ 1e-4 apart)
+    drops = [[float(c["drop_frac"]) for c in calls] for calls in (card_calls, cpu_calls)]
+    if any(abs(a - b) > 1e-6 for a, b in zip(*drops)):
+        raise AssertionError(f"card vs CPU: drop_frac {drops[0]} against {drops[1]}")
+    checks = [check_logits(f"card vs CPU, output {i}", w, g.cpu())
+              for i, (g, w) in enumerate(zip(got, want))]
+    moe_text = (f"; {n_moe} MoE layers, drop_frac {drops[0]}, routed apart: {flips or 'none'}"
+                f" (the logits on the CPU's routing)" if n_moe else "")
+    return f"{summary(checks)}{moe_text}; CPU {t_cpu:.2f} s, card {t_card:.2f} s"
 
 
 def lm_serve(arch: str, card: str) -> None:
@@ -2526,6 +2665,159 @@ def lm_serve(arch: str, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def no_drop(cfg):
+    """``cfg`` at a capacity factor of E/k: capacity ≥ T for any T tokens."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def agreeing_wukv(model, cfg) -> None:
+    """Each MLA layer's ``wukv`` made of its first (kv_lora × nope) block
+    repeated for every head's nope and v columns (nope = v), in place.
+    The absorbed decode reads ``wukv`` as all heads' nope columns, then all
+    heads' v columns; the prefill reads it per head, nope then v (the
+    reference's layouts, `ROADMAP.md` § 3): only such a matrix reads the
+    same both ways, so that decoding can match the forward."""
+    import torch
+
+    with torch.no_grad():
+        for blk in [*model.lead, *model.blocks]:
+            w = blk.mix.wukv
+            w.copy_(w[:, :cfg.qk_nope_head_dim].repeat(1, 2 * cfg.n_heads))
+
+
+def fan_in_experts(model) -> None:
+    """Every expert weight rescaled in place from the init's 1/sqrt(E) to
+    1/sqrt(fan_in).  At 1/sqrt(E) an expert's output is about 1e4 at
+    mixtral's width and swamps the residual, whose bf16 rounding then
+    differs between the forward's and the decode's batched products (on
+    an H100, mixtral's first decode position left more logits outside
+    ``LM_TOL`` than ``LM_OUTSIDE`` allows), as the reference's own decode
+    and forward do at the smoke widths (`ROADMAP.md` § 3)."""
+    import torch
+
+    with torch.no_grad():
+        for blk in model.blocks:
+            for name in ("wi", "wg", "wo"):
+                w = getattr(blk.ffn, name)
+                w.copy_((w.float() * (w.shape[0] / w.shape[1]) ** 0.5).to(w.dtype))
+
+
+def moe_serve(arch: str, card: str) -> None:
+    """``[lm]`` for an MoE arch: `launch/serve.main` at its smoke config on
+    the card, then `serve.serve_loop` at full width on the first
+    ``MOE_LAYERS[arch]`` layers, seeded random weights drawn on the card
+    (each MoE call's ``drop_frac`` read), and a warm rerun; then checks
+    (b) the first 2 layers card against CPU at the published capacity
+    and (a) decoding against the forward at a capacity that drops
+    nothing (`no_drop`), on experts at 1/sqrt(fan_in) (`fan_in_experts`;
+    deepseek also on `agreeing_wukv`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.backends import ExecOptions
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    device = ExecOptions().torch_device()
+    t = time.perf_counter()
+    smoke = serve.main(["--arch", arch, "--smoke"])
+    if not all(bool(torch.isfinite(x).all()) for x in smoke.served.step_logits):
+        raise AssertionError(f"{arch} --smoke: non-finite logits")
+    print(f"[lm] main(['--arch', '{arch}', '--smoke']) on the card: {smoke.cfg.name}, tokens "
+          f"{smoke.served.tokens[0].tolist()}, {time.perf_counter() - t:.2f} s", flush=True)
+    del smoke
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=MOE_LAYERS[arch])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model = lm.init_params(cfg, torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device=device)
+    max_len = LM_PROMPT + LM_GEN + 8
+    n_moe = sum(blk.kind == "moe" for blk in model.blocks)
+    with moe_probe([]) as calls:
+        s = serve.serve_loop(cfg, model, prompts, LM_GEN, max_len)
+    peak = torch.cuda.max_memory_allocated()
+    warm = serve.serve_loop(cfg, model, prompts, LM_GEN, max_len)
+    if not (warm.tokens == s.tokens).all():
+        raise AssertionError(f"{cfg.name}: a second run of the loop gave other tokens")
+    drops = [float(c["drop_frac"]) for c in calls]
+    decode_drops = np.asarray(drops[n_moe:]).reshape(LM_GEN, n_moe)
+    # a decode step reads every weight but the embedding table (its B
+    # rows), all E experts included: the expert buffer is dense over E
+    nbytes = lm.param_bytes(model) - model.embed.table.numel() * model.embed.table.element_size()
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    step_ms = [x.decode_s / LM_GEN * 1e3 for x in (s, warm)]
+    print(f"[lm] {cfg.name} at full width, {cfg.n_layers} of {get_config(arch).n_layers} layers "
+          f"({cfg.first_dense_layers} dense lead, {n_moe} MoE; d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_experts} experts top-{cfg.top_k}, "
+          f"{cfg.n_shared_experts} shared, d_ff_expert {cfg.d_ff_expert}, "
+          f"{'MLA' if cfg.is_mla else f'window {cfg.window}'}, vocab {cfg.vocab}), batch "
+          f"{LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN}: prefill {s.prefill_s * 1e3:.2f} ms, "
+          f"decode {s.decode_s * 1e3:.2f} ms ({step_ms[0]:.2f} ms a step against a "
+          f"{bound_ms:.2f} ms bound: {nbytes} weight bytes at {HBM_BYTES_PER_S / 1e12} TB/s; "
+          f"{LM_BATCH * LM_GEN / s.decode_s:.1f} tokens/s); warm rerun prefill "
+          f"{warm.prefill_s * 1e3:.2f} ms, decode {warm.decode_s * 1e3:.2f} ms ({step_ms[1]:.2f} "
+          f"ms a step); drop_frac prefill {drops[:n_moe]}, decode max per layer "
+          f"{decode_drops.max(axis=0).tolist()}; parameters {lm.param_bytes(model)} bytes, "
+          f"drawn on the card in {t_init:.2f} s; max_memory_allocated {peak - before} bytes "
+          f"above the {before} the earlier phases hold; card {card}", flush=True)
+
+    t = time.perf_counter()
+    card_vs_cpu = lm_card_vs_cpu(model, prompts)
+    t_b = time.perf_counter() - t
+
+    t = time.perf_counter()
+    nd = no_drop(cfg)
+    fan_in_experts(model)
+    if cfg.is_mla:
+        agreeing_wukv(model, cfg)
+    with moe_probe([], route=True) as served_calls:
+        served = serve.serve_loop(nd, model, prompts, LM_GEN, max_len)
+    fed = [torch.as_tensor(served.tokens[:, i:i + 1], device=prompts.device)
+           for i in range(LM_GEN)]
+    seq = torch.cat([prompts] + fed, dim=1)
+    with torch.inference_mode(), moe_probe([], route=True) as full_calls:
+        full, _ = lm.forward(nd, model, seq)
+    first, flips = routed_apart(full_calls, served_calls, n_moe, LM_BATCH, cfg.top_k)
+    # the decode again, on the forward's routing decisions
+    seen, _, forced_calls = run_fed(nd, model, prompts, max_len, LM_GEN, fed,
+                                    force=serve_order(full_calls, n_moe, LM_BATCH, LM_PROMPT))
+    if any(float(c["drop_frac"]) for c in served_calls + full_calls + forced_calls):
+        raise AssertionError(f"{cfg.name}: a call dropped tokens at capacity factor "
+                             f"{nd.capacity_factor}")
+    outs = [seen[0][:, -1]] + [step[:, 0] for step in seen[1:]]
+    checks = [check_logits(f"{cfg.name} position {LM_PROMPT - 1 + i}", full[:, LM_PROMPT - 1 + i],
+                           got) for i, got in enumerate(outs)]
+    # the served tokens are the forward's greedy tokens wherever its top-2
+    # margin is wider than the tolerance, up to each row's first flip
+    top2 = full[:, LM_PROMPT - 1:].float().topk(2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    clear = margin > LM_TOL["atol"] + LM_TOL["rtol"] * top2.values[..., 0].abs()
+    clear &= torch.as_tensor(first[:, None] > np.arange(LM_PROMPT - 1, LM_PROMPT + LM_GEN)[None],
+                             device=clear.device)
+    same = torch.as_tensor(served.tokens, device=full.device) == top2.indices[..., 0]
+    if not bool((same | ~clear).all()):
+        raise AssertionError(f"{cfg.name}: a generated token is not the forward's greedy token")
+    print(f"[check] {cfg.name}: (a) at capacity factor {nd.capacity_factor:.4g} (no call "
+          f"drops), on fan-in experts{' and agreeing wukv' if cfg.is_mla else ''}: routed apart "
+          f"from the forward in {int((first < sys.maxsize).sum())} of {LM_BATCH} rows, "
+          f"{len(flips)} flips {flips or ''} (router logits within the tolerance); on the "
+          f"forward's routing, decode matches forward at all "
+          f"{LM_GEN + 1} generated positions x {LM_BATCH} rows x {cfg.vocab} logits: "
+          f"{summary(checks)}; served tokens equal to the forward's greedy ones at "
+          f"{int(clear.sum())} clear positions before a flip; {time.perf_counter() - t:.2f} s; "
+          f"(b) card vs CPU on the first {LM_CUT['layers']} layers at the published capacity: "
+          f"{card_vs_cpu}; {t_b:.2f} s", flush=True)
+    del model, s, warm, served, full, seen
+    torch.cuda.empty_cache()
+
+
 def aqp_serve() -> dict:
     """``[aqp]``: `launch/serve.main(["--aqp"])` at its defaults on the card
     (its kernel launches counted), then on the CPU: the same ``mean
@@ -2562,8 +2854,18 @@ def lm_path(card: str) -> dict:
     print(f"[reduced] phase 11 (b) card vs CPU: the first {LM_CUT['layers']} layers of each "
           f"model, batch 1, a {LM_CUT['prompt']}-token prompt, {LM_CUT['steps']} decode steps "
           f"(the full models run on the card only)", flush=True)
+    print(f"[reduced] phase 11 MoE: full width on the first {MOE_LAYERS} layers (the whole "
+          f"models, 141 B and 239 B parameters, do not fit one card); check (a) at a capacity "
+          f"factor of n_experts / top_k, where no call drops (capacity follows the token count, "
+          f"B·S in the forward and B in a decode step), on experts rescaled from the init's "
+          f"1/sqrt(E) to 1/sqrt(fan_in) (at 1/sqrt(E) their outputs swamp the residual, whose "
+          f"rounding then splits the two paths), and for deepseek on a wukv whose two layouts "
+          f"agree (its absorbed decode and its prefill read wukv in two layouts: ROADMAP.md "
+          f"§ 3)", flush=True)
     for arch in LM_ARCHS:
         lm_serve(arch, card)
+    for arch in MOE_LAYERS:
+        moe_serve(arch, card)
     return aqp_serve()
 
 

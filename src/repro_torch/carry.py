@@ -141,18 +141,21 @@ def lm_tensor(a, device=None):
 
 
 def _flat(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    """(dotted name, leaf) over nested dicts and lists (the reference's
+    ``params["lead"]`` is a list of layer dicts)."""
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(v, (dict, list)):
             yield from _flat(v, f"{prefix}{k}.")
         else:
             yield f"{prefix}{k}", v
 
 
 def lm_params(ref_params, cfg, device=None):
-    """The port's `LM` with the reference's weights, bit for bit.  The
-    reference stacks pattern slot j's blocks along a unit axis
-    (``params["slots"][j]``); unit u's slot j is the port's block
-    ``u·period + j``."""
+    """The port's `LM` with the reference's weights, bit for bit (the
+    router's f32 too).  The reference stacks pattern slot j's blocks along
+    a unit axis (``params["slots"][j]``); unit u's slot j is the port's
+    block ``u·period + j``.  Its ``params["lead"][i]`` is the port's
+    ``lead.i``."""
     from repro_torch.models import lm
 
     model = lm.LM(cfg, device=device)
@@ -170,13 +173,17 @@ def lm_params(ref_params, cfg, device=None):
 
 
 def lm_cache(ref_cache, cfg, device=None):
-    """The port's per-layer ``[{"k", "v"}, ...]`` cache from the
-    reference's per-slot stacked one (``cache["slots"][j]["k"][u]``)."""
+    """The port's per-layer cache list from the reference's: the leading
+    dense layers' (``cache["lead"]``) first, then the per-slot stacked
+    ones (``cache["slots"][j][name][u]``), each layer's dict with the
+    reference's names (``k``/``v``, or MLA's ``ckv``/``kpe``)."""
     period = len(cfg.block_pattern)
     slots = ref_cache["slots"]
-    n_units = np.asarray(slots[0]["k"]).shape[0]
-    return [{name: lm_tensor(np.asarray(slots[j][name])[u], device) for name in ("k", "v")}
-            for u in range(n_units) for j in range(period)]
+    n_units = np.asarray(next(iter(slots[0].values()))).shape[0]
+    lead = [{name: lm_tensor(a, device) for name, a in c.items()}
+            for c in ref_cache.get("lead", [])]
+    return lead + [{name: lm_tensor(np.asarray(a)[u], device) for name, a in slots[j].items()}
+                   for u in range(n_units) for j in range(period)]
 
 
 def _map_arrays(tree, fn):

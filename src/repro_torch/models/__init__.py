@@ -1,2 +1,3 @@
-"""The LM substrate's models: the config schema, the layers and the
-dense decoder LM (`lm`)."""
+"""The LM substrate's models: the config schema, the layers, the
+mixture of experts (`moe`), multi-head latent attention (`mla`) and the
+decoder LM (`lm`)."""

@@ -1,4 +1,4 @@
-"""Model assembly: the dense decoder LM behind the reference's API.
+"""Model assembly: the dense and MoE decoder LMs behind the reference's API.
 
   init_params(cfg, generator, device)       → LM (an nn.Module)
   param_tree(params)                        → its parameters as a nested tree
@@ -10,19 +10,22 @@
 The reference (`repro.models.lm`) stacks each pattern slot's parameters
 across units for one `lax.scan`; here the blocks are an `nn.ModuleList`
 in layer order (layer ``u·period + j`` is unit u's slot j) and the scan
-is a Python loop.  The decode cache is preallocated per layer and written
-in place.
+is a Python loop.  DeepSeek's leading dense layers (attention + a plain
+MLP of width ``d_ff``) are the `nn.ModuleList` ``lead``, run before the
+blocks.  The decode cache is preallocated per layer (the lead's first)
+and written in place.
 
-Only the dense family (``block_pattern=("attn",)``, no experts, no MLA,
-no leading dense layers, no encoder or image prefix) is ported: every
-other block kind or family raises `NotImplementedError` at construction
-(`ROADMAP.md` § 1 item 10).
+Ported: the dense family and the MoE family (``block_pattern`` of
+``"attn"`` and ``"moe"`` blocks, MLA, the leading dense layers, the
+sliding window).  The other families and block kinds raise
+`NotImplementedError` at construction (`ROADMAP.md` § 1 item 10).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.models import mla, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     DTYPE,
@@ -41,22 +44,21 @@ from repro_torch.models.layers import (
 )
 
 
+PORTED_FAMILIES = ("dense", "moe")
+PORTED_KINDS = ("attn", "moe")
+
+
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless every block of ``cfg`` is a dense attention block."""
+    """Raise unless ``cfg`` is of a ported family and every block kind of
+    it is ported."""
     missing = []
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         missing.append(f"family {cfg.family!r}")
-    missing += [f"block kind {k!r}" for k in sorted(set(cfg.block_pattern) - {"attn"})]
-    if cfg.is_moe:
-        missing.append("experts")
-    if cfg.is_mla:
-        missing.append("MLA")
-    if cfg.first_dense_layers:
-        missing.append("leading dense layers")
+    missing += [f"block kind {k!r}" for k in sorted(set(cfg.block_pattern) - set(PORTED_KINDS))]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; only the dense family "
-            "is (ROADMAP.md § 1 item 10 orders the rest)"
+            f"{cfg.name}: {', '.join(missing)} not ported yet; only the dense and MoE "
+            "families are (ROADMAP.md § 1 item 10 orders the rest)"
         )
 
 
@@ -64,18 +66,24 @@ def check_ported(cfg: ModelConfig) -> None:
 # blocks
 # --------------------------------------------------------------------------
 class Block(nn.Module):
-    """Residual dense attention block: ``x + mix(norm1(x))``, then
-    ``x + ffn(norm2(x))``.  ``active`` False is a padded tail slot of a
-    ragged pattern (the reference's inactive-tail gate)."""
+    """Residual block: ``x + mix(norm1(x))``, then ``x + ffn(norm2(x))``.
+    The mix is `MLA` where the config has a kv rank, else GQA attention;
+    the ffn is an `MoE` for kind ``"moe"``, else a plain MLP of width
+    ``d_ff``.  ``active`` False is a padded tail slot of a ragged pattern
+    (the reference's inactive-tail gate)."""
 
-    def __init__(self, cfg: ModelConfig, active: bool, generator=None, *, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, active: bool, generator=None, *,
+                 device=None):
         super().__init__()
         d = cfg.d_model
+        self.kind = kind
         self.active = active
         self.norm1 = RMSNorm(d, cfg.norm_eps, device=device)
-        self.mix = Attention(cfg, generator, device=device)
+        mix = mla.MLA if cfg.is_mla else Attention
+        self.mix = mix(cfg, generator, device=device)
         self.norm2 = RMSNorm(d, cfg.norm_eps, device=device)
-        self.ffn = MLP(d, cfg.d_ff, generator, device=device)
+        self.ffn = (moe.MoE(cfg, generator, device=device) if kind == "moe"
+                    else MLP(d, cfg.d_ff, generator, device=device))
 
 
 def _gated(x, h, active: bool):
@@ -83,14 +91,32 @@ def _gated(x, h, active: bool):
     return x + h if active else x + h * 0
 
 
-def _block_apply(p: Block, x, cfg, *, causal=True, positions=None):
-    """Residual block. Returns (x, (k, v))."""
+def _mix_apply(p: Block, h, cfg, *, causal=True, positions=None):
+    """Full-sequence mixer. Returns (out, cache contribution)."""
+    if cfg.is_mla:
+        return mla.mla_apply(p.mix, h, cfg, positions=positions)
     window = cfg.window if cfg.window > 0 else 0
-    h, kv = attn_apply(p.mix, rmsnorm(p.norm1, x, cfg.norm_eps), cfg, causal=causal,
-                       window=window, positions=positions)
+    return attn_apply(p.mix, h, cfg, causal=causal, window=window, positions=positions)
+
+
+def _ffn(p: Block, h, cfg):
+    """The block's ffn on ``h`` → (out, the router's aux or None)."""
+    if p.kind == "moe":
+        return moe.moe_apply(p.ffn, h, cfg)
+    return mlp(p.ffn, h), None
+
+
+def _block_apply(p: Block, x, cfg, *, causal=True, positions=None):
+    """Residual block. Returns (x, cache contribution, aux): the router's
+    ``lb_loss`` and ``z_loss`` scaled by the slot's gate, None without
+    experts."""
+    h, kv = _mix_apply(p, rmsnorm(p.norm1, x, cfg.norm_eps), cfg, causal=causal,
+                       positions=positions)
     x = _gated(x, h, p.active)
-    out = mlp(p.ffn, rmsnorm(p.norm2, x, cfg.norm_eps))
-    return _gated(x, out, p.active), kv
+    out, aux = _ffn(p, rmsnorm(p.norm2, x, cfg.norm_eps), cfg)
+    if aux is not None:
+        aux = {k: aux[k] if p.active else aux[k] * 0 for k in ("lb_loss", "z_loss")}
+    return _gated(x, out, p.active), kv, aux
 
 
 # --------------------------------------------------------------------------
@@ -106,9 +132,9 @@ def _units(cfg: ModelConfig):
 
 
 class LM(nn.Module):
-    """Embedding, the blocks in layer order, the final norm and (untied)
-    the ``(d, vocab)`` head.  ``generator`` None leaves the weights
-    uninitialised for the carry to fill."""
+    """Embedding, the blocks in layer order (after the ``lead`` layers),
+    the final norm and (untied) the ``(d, vocab)`` head.  ``generator``
+    None leaves the weights uninitialised for the carry to fill."""
 
     def __init__(self, cfg: ModelConfig, generator=None, *, device=None):
         super().__init__()
@@ -122,9 +148,14 @@ class LM(nn.Module):
             dense_init(generator, (d, cfg.vocab), device=device), requires_grad=False)
         self.register_parameter("head", head)
         self.blocks = nn.ModuleList(
-            Block(cfg, active[u][j], generator, device=device)
-            for u in range(n_units) for j in range(period)
+            Block(cfg, kind, active[u][j], generator, device=device)
+            for u in range(n_units) for j, kind in enumerate(cfg.block_pattern)
         )
+        # deepseek: leading dense layers (attention + plain MLP); no
+        # submodule elsewhere, so that a dense model's tree is unchanged
+        self.lead = nn.ModuleList(
+            Block(cfg, "attn", True, generator, device=device)
+            for _ in range(cfg.first_dense_layers)) if cfg.first_dense_layers else ()
 
     def forward(self, tokens):
         return forward(self.cfg, self, tokens)[0]
@@ -144,8 +175,8 @@ def param_tree(module: nn.Module):
     """The module's parameters (the tensors themselves) as a nested tree:
     a dict per module, a list per `nn.ModuleList` — ``{"embed": {"table"},
     "final_norm": {"scale"}, "head"?, "blocks": [{"norm1", "mix", "norm2",
-    "ffn"}, ...]}`` for the LM.  The optimizer state and the checkpoint
-    paths (``blocks/0/mix/wq``) follow it."""
+    "ffn"}, ...], "lead"?: [...]}`` for the LM.  The optimizer state and
+    the checkpoint paths (``blocks/0/mix/wq``) follow it."""
     if isinstance(module, nn.ModuleList):
         return [param_tree(m) for m in module]
     out = dict(module.named_parameters(recurse=False))
@@ -161,32 +192,38 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
-def _unit(cfg, blocks, positions, x):
+def _unit(cfg, blocks, positions, x, lb, zl):
     for blk in blocks:
-        x, _ = _block_apply(blk, x, cfg, positions=positions)
-    return x
+        x, _, aux = _block_apply(blk, x, cfg, positions=positions)
+        if aux is not None:
+            lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
+    return x, lb, zl
 
 
 def forward_hidden(cfg: ModelConfig, params: LM, tokens, *, remat_units: bool = False):
-    """Final-norm hidden states (B, S, d) and the aux losses (zeros: no
+    """Final-norm hidden states (B, S, d) and the aux losses: the router's
+    ``lb_loss`` and ``z_loss`` summed over the blocks (zeros without
     experts).  tokens: (B, S) integers.  ``remat_units`` checkpoints each
     pattern unit: its backward recomputes the unit's internals and only
     the bf16 carries are saved across layers (the reference's module
-    flag ``REMAT_UNITS``, held per call here)."""
+    flag ``REMAT_UNITS``, held per call here; the leading dense layers
+    run outside the scan there, and unchecked here)."""
     pin_f32_accumulation()
     x = embed(params.embed, tokens).to(DTYPE)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
+    for blk in params.lead:
+        x, *_ = _block_apply(blk, x, cfg, positions=positions)
+    lb = zl = torch.zeros((), dtype=torch.float32, device=x.device)
     period = len(cfg.block_pattern)
     for u in range(0, len(params.blocks), period):
         blocks = params.blocks[u:u + period]
         if remat_units:
-            x = remat(_unit, cfg, blocks, positions, x)
+            x, lb, zl = remat(_unit, cfg, blocks, positions, x, lb, zl)
         else:
-            x = _unit(cfg, blocks, positions, x)
+            x, lb, zl = _unit(cfg, blocks, positions, x, lb, zl)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, {"lb_loss": zero, "z_loss": zero}
+    return x, {"lb_loss": lb, "z_loss": zl}
 
 
 def _head_table(cfg, params: LM):
@@ -264,31 +301,53 @@ def loss_fn(cfg: ModelConfig, params: LM, batch, *, remat_units: bool = False):
 # --------------------------------------------------------------------------
 # serve path: prefill + decode
 # --------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list[dict]:
-    """One ``{"k", "v"}`` pair of (B, S, K, hd) zeros per layer; S is
-    ``min(max_len, window)`` for sliding-window attention (a ring)."""
-    check_ported(cfg)
-    period, n_units, _ = _units(cfg)
+def _layers(params: LM) -> list[Block]:
+    """The leading dense layers, then the blocks: layer order."""
+    return [*params.lead, *params.blocks]
+
+
+def _layer_cache(cfg, batch: int, max_len: int, device) -> dict:
+    """``{"ckv", "kpe"}`` (B, max_len, rank) zeros for MLA, else a
+    ``{"k", "v"}`` pair of (B, S, K, hd) zeros; S is ``min(max_len,
+    window)`` for sliding-window attention (a ring)."""
+    if cfg.is_mla:
+        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=DTYPE, device=device),
+                "kpe": torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=DTYPE,
+                                   device=device)}
     s = min(max_len, cfg.window) if cfg.window > 0 else max_len
     shape = (batch, s, cfg.n_kv_heads, cfg.d_head)
-    return [{"k": torch.zeros(shape, dtype=DTYPE, device=device),
-             "v": torch.zeros(shape, dtype=DTYPE, device=device)}
-            for _ in range(n_units * period)]
+    return {"k": torch.zeros(shape, dtype=DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=DTYPE, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list[dict]:
+    """One cache per layer, in layer order (the leading dense layers'
+    first): `_layer_cache`."""
+    check_ported(cfg)
+    period, n_units, _ = _units(cfg)
+    return [_layer_cache(cfg, batch, max_len, device)
+            for _ in range(cfg.first_dense_layers + n_units * period)]
+
+
+def _mix_decode(p: Block, h, cfg, c: dict, pos: int):
+    if cfg.is_mla:
+        return mla.mla_decode(p.mix, h, cfg, c["ckv"], c["kpe"], pos)[0]
+    return attn_decode(p.mix, h, cfg, c["k"], c["v"], pos, window=cfg.window)[0]
 
 
 def decode_step(cfg: ModelConfig, params: LM, cache: list[dict], tokens, pos: int):
     """One decode step. tokens: (B, 1); pos: the absolute position.
 
-    Writes the token's K/V into ``cache`` in place; returns
-    (logits (B, 1, V), cache).
+    Writes the token's cache entries into ``cache`` in place; returns
+    (logits (B, 1, V), cache).  An MoE block routes the B tokens of the
+    step (its capacity is that of B tokens).
     """
     pin_f32_accumulation()
     x = embed(params.embed, tokens).to(DTYPE)
-    for blk, c in zip(params.blocks, cache):
-        h = rmsnorm(blk.norm1, x, cfg.norm_eps)
-        out, _, _ = attn_decode(blk.mix, h, cfg, c["k"], c["v"], pos, window=cfg.window)
+    for blk, c in zip(_layers(params), cache):
+        out = _mix_decode(blk, rmsnorm(blk.norm1, x, cfg.norm_eps), cfg, c, pos)
         x = _gated(x, out, blk.active)
-        x = _gated(x, mlp(blk.ffn, rmsnorm(blk.norm2, x, cfg.norm_eps)), blk.active)
+        x = _gated(x, _ffn(blk, rmsnorm(blk.norm2, x, cfg.norm_eps), cfg)[0], blk.active)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return _logits(cfg, params, x), cache
 
@@ -301,25 +360,29 @@ def prefill(cfg: ModelConfig, params: LM, tokens, max_len: int):
     x = embed(params.embed, tokens).to(DTYPE)
     positions = _positions(b, s, x.device)
     cache = init_cache(cfg, b, max_len, x.device)
-    window = cfg.window if cfg.window > 0 else 0
-    for blk, c in zip(params.blocks, cache):
+    for blk, c in zip(_layers(params), cache):
         if not blk.active:
             continue
-        h = rmsnorm(blk.norm1, x, cfg.norm_eps)
-        out, kv = attn_apply(blk.mix, h, cfg, window=window, positions=positions)
+        out, st = _mix_apply(blk, rmsnorm(blk.norm1, x, cfg.norm_eps), cfg, positions=positions)
         x = x + out
-        x = x + mlp(blk.ffn, rmsnorm(blk.norm2, x, cfg.norm_eps))
-        _store_kv(cfg, c, kv)
+        x = x + _ffn(blk, rmsnorm(blk.norm2, x, cfg.norm_eps), cfg)[0]
+        _store_cache(cfg, c, st)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return _logits(cfg, params, x), cache
 
 
-def _store_kv(cfg, slot_cache: dict, kv) -> None:
-    """Write a prompt's K/V at slot 0.  A windowed cache keeps the last
-    ``w`` keys there, which agrees with `attn_decode`'s ``pos % w`` ring
-    only for a prompt no longer than the window (the reference's "prompt ≤
-    window in our shapes"; `ROADMAP.md` § 3)."""
-    k, v = kv
+def _store_cache(cfg, slot_cache: dict, st) -> None:
+    """Write a prompt's cache entries at slot 0: MLA's ``(c_kv, k_rope)``,
+    or K/V.  A windowed cache keeps the last ``w`` keys there, which agrees
+    with `attn_decode`'s ``pos % w`` ring only for a prompt no longer than
+    the window (the reference's "prompt ≤ window in our shapes";
+    `ROADMAP.md` § 3)."""
+    if cfg.is_mla:
+        ckv, kpe = st
+        slot_cache["ckv"][:, :ckv.shape[1]] = ckv
+        slot_cache["kpe"][:, :kpe.shape[1]] = kpe
+        return
+    k, v = st
     if cfg.window > 0:
         w = slot_cache["k"].shape[1]
         k, v = k[:, -w:], v[:, -w:]

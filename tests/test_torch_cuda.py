@@ -18,7 +18,8 @@ gives group_aggregate's bits (one shared aggregation).  The device GBDT fit on t
 host fit's forest bit for bit.  A stream of appends folded on the card
 equals a cold rebuild of the grown table bit for bit.  A qwen-smoke train
 step on the card agrees with the CPU (the loss, every gradient and two
-steps' losses, at the CPU parity tests' tolerances).
+steps' losses, at the CPU parity tests' tolerances), and so do the MoE
+smoke models' prefill and decode steps.
 """
 import numpy as np
 import pytest
@@ -975,3 +976,77 @@ def test_train_step_card_matches_cpu(cuda):
     for name, want in grads["cpu"].items():
         rel = float((grads["card"][name] - want).norm() / want.norm().clamp_min(1e-30))
         assert rel <= 5e-2, (name, rel)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v2_236b"])
+def test_moe_smoke_card_matches_cpu(cuda, arch, monkeypatch):
+    """The MoE smoke models (experts, a window; MLA, a leading dense layer,
+    shared experts) on the card against the CPU, from the same weights: a
+    prefill of 2 × 12 tokens and 3 decode steps fed the CPU's greedy
+    tokens, the logits at ``rtol=5e-2, atol=5e-2`` with a correlation
+    above 0.999 (two lowerings, `tests/test_arch_smoke.py`), each MoE
+    call's ``drop_frac`` equal (to the f32 mean's rounding).  The experts
+    are scaled by fan-in, as the CPU tests' weights are (the reference's
+    1/sqrt(E) init makes their outputs about 100 times the residual,
+    whose bf16 rounding the two lowerings then split).  A token routed to other experts must have
+    router logits that agree at the same tolerance (a near tie that the
+    rounding breaks); its row is compared only before it."""
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm, moe
+
+    cfg = get_smoke(arch)
+    models = {"cpu": lm.init_params(cfg, torch.Generator().manual_seed(0))}
+    for blk in models["cpu"].blocks:
+        for name in ("wi", "wg", "wo"):
+            w = getattr(blk.ffn, name)
+            w.copy_((w.float() * np.sqrt(w.shape[0] / w.shape[1])).to(w.dtype))
+    models["card"] = copy.deepcopy(models["cpu"]).to(cuda)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12)))
+    routed, drops, outs, fed = {}, {}, {}, []
+    real_route, real_apply = moe.route, moe.moe_apply
+    for where in ("cpu", "card"):
+        dev = cuda if where == "card" else torch.device("cpu")
+        routed[where], drops[where] = [], []
+
+        def route(p, xt, c, sink=routed[where]):
+            out = real_route(p, xt, c)
+            sink.append((out[0].cpu(), out[3].cpu()))
+            return out
+
+        def moe_apply(p, x, c, sink=drops[where]):
+            y, aux = real_apply(p, x, c)
+            sink.append(float(aux["drop_frac"]))
+            return y, aux
+
+        monkeypatch.setattr(moe, "route", route)
+        monkeypatch.setattr(moe, "moe_apply", moe_apply)
+        with torch.inference_mode():
+            logits, cache = lm.prefill(cfg, models[where], tokens.to(dev), 20)
+            seen = [logits]
+            for i in range(3):
+                if where == "cpu":
+                    fed.append(torch.argmax(seen[-1][:, -1:], dim=-1))
+                step, cache = lm.decode_step(cfg, models[where], cache, fed[i].to(dev), 12 + i)
+                seen.append(step)
+        outs[where] = [x.float().cpu() for x in seen]
+    # f32 means of equal keep masks agree to 1e-6 (a slot apart is ≥ 1e-3)
+    np.testing.assert_allclose(drops["card"], drops["cpu"], rtol=0, atol=1e-6)
+    # each row's first routed-apart position: prefill positions, then steps
+    first = np.full(2, 15)
+    n_moe = len(models["cpu"].blocks)
+    for call, ((l_cpu, i_cpu), (l_card, i_card)) in enumerate(zip(routed["cpu"], routed["card"])):
+        apart = (i_cpu.sort(1).values != i_card.sort(1).values).any(1)
+        for tok in np.flatnonzero(apart.numpy()):
+            np.testing.assert_allclose(l_card[tok].numpy(), l_cpu[tok].numpy(), rtol=5e-2,
+                                       atol=5e-2)
+            row, pos = divmod(int(tok), 12) if call < n_moe else (int(tok), 12 + call // n_moe - 1)
+            first[row] = min(first[row], pos)
+    for i, (got, want) in enumerate(zip(outs["card"], outs["cpu"])):
+        pos = np.arange(12)[None, :] if i == 0 else np.full((1, 1), 11 + i)
+        keep = torch.as_tensor(pos < first[:, None])
+        a, b = want[keep], got[keep]
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=5e-2, atol=5e-2)
+        assert np.corrcoef(a.ravel().numpy(), b.ravel().numpy())[0, 1] > 0.999
+    assert (first > 11).any()

@@ -10,12 +10,21 @@ Held across the two packages, on the CPU:
     up to summation order and the f32 transcendentals);
   * `forward`, `prefill`, three `decode_step`s and `make_prefill_step` on
     the same weights (numpy, in the reference's param pytree) for the
-    dense smoke configs (and one with
-    a sliding window, prompt ≤ window), at the reference's own tolerance
-    for two lowerings of the same model (``rtol=5e-2, atol=5e-2`` and a
-    correlation above 0.999, `tests/test_arch_smoke.py`): XLA rounds a
-    fused chain of bf16 ops once, torch once per op;
-  * the port's own decode-matches-forward contract, on its own init.
+    dense smoke configs (and one with a sliding window, prompt ≤ window)
+    and the MoE smoke configs (mixtral: experts and a window; deepseek:
+    MLA, a leading dense layer and shared experts), at the reference's
+    own tolerance for two lowerings of the same model (``rtol=5e-2,
+    atol=5e-2`` and a correlation above 0.999, `tests/test_arch_smoke.py`):
+    XLA rounds a fused chain of bf16 ops once, torch once per op; the
+    router's ``lb_loss`` and ``z_loss`` at 1e-5 relative.  Both sides'
+    routing is captured per MoE call (`test_torch_moe.ReferenceRouting`,
+    `PortRouting`): a token routed to another expert set (a near tie of
+    the router that the two lowerings' rounding breaks either way) must
+    be one that ``FLIPS`` names, and the logits of its row from its
+    position on are not compared;
+  * the port's own decode-matches-forward contract, on its own init (the
+    MoE configs at a capacity that drops nothing: the forward routes
+    B·S tokens and a decode step B, and their capacities differ).
 
 Every other family raises `NotImplementedError` naming the roadmap item.
 """
@@ -36,9 +45,12 @@ from repro.train import steps as ref_steps
 from repro_torch import carry, configs
 from repro_torch.models import config, layers, lm
 from repro_torch.train import steps
+from test_torch_moe import PortRouting, ReferenceRouting, flipped_tokens
 
 DENSE = ("qwen1_5_0_5b", "yi_6b", "llama3_405b")
-UNPORTED = tuple(a for a in configs.all_archs() if ref_configs.get_smoke(a).family != "dense")
+MOE = ("mixtral_8x22b", "deepseek_v2_236b")
+UNPORTED = tuple(a for a in configs.all_archs()
+                 if ref_configs.get_smoke(a).family not in ("dense", "moe"))
 TOL = dict(rtol=5e-2, atol=5e-2)  # `tests/test_arch_smoke.py::test_decode_matches_forward`
 BF16_STEP = 2.0 ** -7  # one bf16 step relative to the value (8 significant bits)
 
@@ -180,7 +192,7 @@ def test_attn_decode_matches_reference(window):
 # --------------------------------------------------------------------------
 # the model on the reference's weights
 # --------------------------------------------------------------------------
-MODELS = DENSE + ("llama3_405b+window",)
+MODELS = DENSE + ("llama3_405b+window",) + MOE
 
 
 def _cfgs(name):
@@ -214,7 +226,9 @@ def reference_params(cfg, seed):
 @pytest.fixture(scope="module")
 def reference_runs():
     """name → the reference's weights, tokens, forward/prefill logits and
-    three greedy decode steps (jitted: one compile each)."""
+    aux, three greedy decode steps (jitted: one compile each) and the
+    routing of every MoE call of each (``routing``: ``forward``,
+    ``prefill`` and one list per step)."""
     runs = {}
 
     def run(name):
@@ -224,89 +238,209 @@ def reference_runs():
         params = reference_params(cfg, seed=0)
         toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 12))
         t = jnp.asarray(toks, jnp.int32)
-        full, _ = jax.jit(partial(ref_lm.forward, cfg))(params, t)
-        pf, cache = jax.jit(partial(ref_lm.prefill, cfg), static_argnums=2)(params, t, 20)
-        first_cache = jax.tree.map(np.asarray, cache)
-        step = jax.jit(ref_steps.make_serve_step(cfg))
-        tok, steps_out = jnp.argmax(pf[:, -1:], axis=-1).astype(jnp.int32), []
-        for i in range(3):
-            logits, cache = step(params, cache, tok, 12 + i)
-            steps_out.append((np.asarray(tok), logits))
-            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        with pytest.MonkeyPatch.context() as mp:
+            spy = ReferenceRouting(mp)
+            full, aux = jax.jit(partial(ref_lm.forward, cfg))(params, t)
+            routing = {"forward": spy.take()[0]}
+            pf, cache = jax.jit(partial(ref_lm.prefill, cfg), static_argnums=2)(params, t, 20)
+            routing["prefill"] = spy.take()[0]
+            first_cache = jax.tree.map(np.asarray, cache)
+            step = jax.jit(ref_steps.make_serve_step(cfg))
+            tok, steps_out = jnp.argmax(pf[:, -1:], axis=-1).astype(jnp.int32), []
+            routing["steps"] = []
+            for i in range(3):
+                logits, cache = step(params, cache, tok, 12 + i)
+                steps_out.append((np.asarray(tok), logits))
+                routing["steps"].append(spy.take()[0])
+                tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         runs[name] = dict(params=jax.tree.map(np.asarray, params), tokens=toks, forward=full,
-                          prefill=pf, cache=first_cache, steps=steps_out)
+                          aux=jax.tree.map(float, aux), prefill=pf, cache=first_cache,
+                          steps=steps_out, routing=routing)
         return runs[name]
 
     return run
 
 
-@pytest.mark.parametrize("name", DENSE)
+def _bits(a):
+    """An array's bits as integers (bf16 and f32 alike)."""
+    if isinstance(a, torch.Tensor):
+        return a.view({2: torch.int16, 4: torch.int32}[a.element_size()]).numpy()
+    return a.view({2: np.int16, 4: np.int32}[a.dtype.itemsize])
+
+
+@pytest.mark.parametrize("name", DENSE + MOE)
 def test_carry_is_bit_exact(name, reference_runs):
+    """Every leaf: ``slots`` unstacked into blocks, ``lead`` (deepseek's
+    leading dense layer), the f32 router, the experts and MLA; then the
+    prefill's cache (``k``/``v``, or MLA's ``ckv``/``kpe``)."""
     cfg, _ = _cfgs(name)
     ref = reference_runs(name)
     model = carry.lm_params(ref["params"], cfg, "cpu")
-    state = model.state_dict()
-    n = 0
-    for key, a in ref["params"].items():
-        if key == "slots":
-            continue
-        for sub, leaf in (a.items() if isinstance(a, dict) else [("", a)]):
-            got = state[f"{key}.{sub}" if sub else key]
-            np.testing.assert_array_equal(got.view(torch.int16).numpy(), leaf.view(np.int16))
-            n += 1
-    for u, blk in enumerate(model.blocks):
-        for part in ("norm1", "mix", "norm2", "ffn"):
-            for leaf, a in ref["params"]["slots"][0][part].items():
-                got = getattr(getattr(blk, part), leaf)
-                np.testing.assert_array_equal(got.view(torch.int16).numpy(),
-                                              a[u].view(np.int16))
-                n += 1
-    assert n == len(state)
-    assert lm.param_bytes(model) == 2 * sum(a.size for a in jax.tree.leaves(ref["params"]))
+    state = model.state_dict(keep_vars=True)
+    want = dict(carry._flat({k: v for k, v in ref["params"].items() if k != "slots"}))
+    slots = ref["params"]["slots"]
+    for j, slot in enumerate(slots):
+        for leaf, a in carry._flat(slot):
+            for u in range(a.shape[0]):
+                want[f"blocks.{u * len(slots) + j}.{leaf}"] = a[u]
+    assert set(want) == set(state)
+    for key, a in want.items():
+        assert str(state[key].dtype).split(".")[1] == a.dtype.name, key
+        np.testing.assert_array_equal(_bits(state[key].detach()), _bits(a), err_msg=key)
+    if cfg.is_moe:
+        assert all(blk.ffn.router.dtype == torch.float32 for blk in model.blocks)
+    assert lm.param_bytes(model) == sum(a.nbytes for a in jax.tree.leaves(ref["params"]))
     cache = carry.lm_cache(ref["cache"], cfg, "cpu")
     assert len(cache) == cfg.n_layers
-    for u, c in enumerate(cache):
-        for name_kv in ("k", "v"):
-            want = ref["cache"]["slots"][0][name_kv][u]
-            np.testing.assert_array_equal(c[name_kv].view(torch.int16).numpy(),
-                                          want.view(np.int16))
+    ref_layers_cache = list(ref["cache"].get("lead", [])) + [
+        {k: v[u] for k, v in ref["cache"]["slots"][0].items()}
+        for u in range(cfg.n_layers - cfg.first_dense_layers)]
+    for c, w in zip(cache, ref_layers_cache):
+        assert set(c) == set(w) == ({"ckv", "kpe"} if cfg.is_mla else {"k", "v"})
+        for k in c:
+            np.testing.assert_array_equal(_bits(c[k]), _bits(w[k]))
+
+
+# Tokens that the two packages route to different expert sets, by model:
+# (section, MoE call, row, position), the first of each row.  Each is a
+# near tie of the router that the lowerings' rounding breaks either way
+# (ROADMAP.md § 3): here the reference's second and third experts of
+# deepseek-smoke's first MoE layer at row 1, token 4 (experts 2 and 4,
+# 0.12852 and 0.12800; the port's 0.127259 and 0.127233).
+FLIPS = {"deepseek_v2_236b": [("forward", 0, 1, 4), ("prefill", 0, 1, 4)]}
+
+
+def _first_flips(ref_calls, port_calls, b, s):
+    """Each row's first flipped position (``s`` where none) and the flips
+    that start a row's divergence, as (call, row, position); a flip in a
+    later layer at or after a row's first is its consequence."""
+    first = np.full(b, s)
+    flips = []
+    for call, tok in flipped_tokens(ref_calls, port_calls):
+        row, pos = divmod(tok, s)
+        if pos < first[row]:
+            first[row] = pos
+            flips.append((call, row, pos))
+    return first, flips
+
+
+def _close_rows(want, got, first):
+    """`_close` on the positions (B, S, ...) before each row's first flip."""
+    a, b = _np(want), _np(got)
+    keep = np.arange(a.shape[1])[None, :] < first[:, None]
+    _close(a[keep], b[keep])
 
 
 @pytest.mark.parametrize("name", MODELS)
 @torch.inference_mode()
-def test_lm_matches_reference(name, reference_runs):
+def test_lm_matches_reference(name, reference_runs, monkeypatch):
     cfg, _ = _cfgs(name)
     ref = reference_runs(name)
+    b, s = ref["tokens"].shape
     model = carry.lm_params(ref["params"], cfg, "cpu")
     tokens = torch.as_tensor(ref["tokens"])
+    port = PortRouting(monkeypatch)
+    found = []
+
+    def first_flips(section, ref_calls, n=s):
+        first, flips = _first_flips(ref_calls, port.take()[0], b, n)
+        found.extend((section, *f) for f in flips)
+        return first
+
     logits, aux = lm.forward(cfg, model, tokens)
-    _close(ref["forward"], logits)
-    assert float(aux["lb_loss"]) == 0.0 and float(aux["z_loss"]) == 0.0
+    first = first_flips("forward", ref["routing"]["forward"])
+    _close_rows(ref["forward"], logits, first)
+    # the router reads hidden states that the lowerings round differently
+    # (1e-5 on equal inputs: `tests/test_torch_moe.py`); a flipped token
+    # moves the expert counts themselves
+    for k in ("lb_loss", "z_loss"):
+        if (first == s).all():
+            np.testing.assert_allclose(float(aux[k]), ref["aux"][k], rtol=1e-3, atol=0)
+        assert (float(aux[k]) == 0.0) == (not cfg.is_moe)
     # the reference's prefill_step is its forward's last row
-    _close(ref["forward"][:, -1], steps.make_prefill_step(cfg)(model, {"tokens": tokens}))
+    last = steps.make_prefill_step(cfg)(model, {"tokens": tokens})
+    port.take()
+    _close(_np(ref["forward"])[first == s, -1], _np(last)[first == s])
     pf, cache = lm.prefill(cfg, model, tokens, 20)
-    _close(ref["prefill"], pf)
+    first = first_flips("prefill", ref["routing"]["prefill"])
+    _close_rows(ref["prefill"], pf, first)
     # the prefill's cache, and decoding from the reference's own cache
-    for c, want_k in zip(cache, ref["cache"]["slots"][0]["k"]):
-        _close(want_k, c["k"])
+    ref_layer_caches = list(ref["cache"].get("lead", [])) + [
+        {k: v[u] for k, v in ref["cache"]["slots"][0].items()}
+        for u in range(cfg.n_layers - cfg.first_dense_layers)]
+    for c, want in zip(cache, ref_layer_caches):
+        for k in want:
+            _close_rows(want[k][:, :s], c[k][:, :s], first)
     ref_cache = carry.lm_cache(ref["cache"], cfg, "cpu")
     serve_step = steps.make_serve_step(cfg)
+    own = first == s  # rows whose own prefill cache routed as the reference
+    from_ref = np.ones(b, bool)
     for i, (tok, want) in enumerate(ref["steps"]):
         tok = torch.as_tensor(tok, dtype=torch.int64)
+        ref_calls = ref["routing"]["steps"][i]
         got, cache = serve_step(model, cache, tok, 12 + i)
-        _close(want, got)
+        own &= first_flips(f"step {i}", ref_calls, 1) == 1
+        _close(_np(want)[own], _np(got)[own])
         got, ref_cache = lm.decode_step(cfg, model, ref_cache, tok, 12 + i)
-        _close(want, got)
+        from_ref &= first_flips(f"step {i} (reference cache)", ref_calls, 1) == 1
+        _close(_np(want)[from_ref], _np(got)[from_ref])
+    assert found == FLIPS.get(name, []), found
+    assert own.any() and from_ref.any()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _no_drop(cfg):
+    """``cfg`` at a capacity factor of E/k: capacity ≥ T for any T tokens."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k) if cfg.is_moe \
+        else cfg
+
+
+def agreeing_wukv(model, cfg):
+    """Each MLA layer's ``wukv`` made of its first (kv_lora × nope) block
+    repeated for every head's nope and v columns (nope = v), so that the
+    absorbed decode's reading of it (all heads' nope, then all heads' v)
+    and the prefill's (per head: nope, then v) give the same matrices —
+    the two packages' decode otherwise departs from their forward
+    (`ROADMAP.md` § 3)."""
+    assert cfg.qk_nope_head_dim == cfg.v_head_dim
+    for blk in [*model.lead, *model.blocks]:
+        w = blk.mix.wukv
+        w.copy_(w[:, :cfg.qk_nope_head_dim].repeat(1, 2 * cfg.n_heads))
+
+
+def fan_in_experts(model):
+    """The experts redrawn at 1/sqrt(fan_in) (the test weights' scale).
+    The reference's init scales them by 1/sqrt(E), which makes an
+    expert's output about 100 times the residual at the smoke widths; the
+    lowerings' bf16 rounding of that residual then leaves a few logits
+    outside the tolerance in the reference's own decode against its
+    forward (1 to 426 of 2,560 over PRNGKey 0 to 3, mixtral-smoke)."""
+    for blk in model.blocks:
+        for name in ("wi", "wg", "wo"):
+            w = getattr(blk.ffn, name)
+            w.copy_((w.float() * np.sqrt(w.shape[0] / w.shape[1])).to(w.dtype))
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE)
 @torch.inference_mode()
-def test_decode_matches_forward(arch):
+def test_decode_matches_forward(arch, monkeypatch):
     """Greedy (prefill + decode) logits == the full forward's, on the
-    port's own init (the reference's contract, `tests/test_arch_smoke.py`)."""
-    cfg = configs.get_smoke(arch)
+    port's own init (the reference's contract, `tests/test_arch_smoke.py`).
+    The MoE configs run at a capacity that drops nothing (`_no_drop`):
+    capacity follows the token count, which is B·S in the forward and B
+    in a decode step, so at the published capacity a forward that drops
+    tokens is not what decoding computes; their experts are scaled by
+    fan-in (`fan_in_experts`) and deepseek's ``wukv`` has one layout
+    (`agreeing_wukv`).  A token that the forward and the decode route
+    differently (a near tie of the router) is named in ``FLIPS`` and its
+    row is compared only before it; every MoE call drops nothing."""
+    cfg = _no_drop(configs.get_smoke(arch))
     model = lm.init_params(cfg, torch.Generator().manual_seed(3))
+    if cfg.is_moe:
+        fan_in_experts(model)
+    if cfg.is_mla:
+        agreeing_wukv(model, cfg)
     tokens = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab, (1, 12)))
+    port = PortRouting(monkeypatch)
     pf, cache = lm.prefill(cfg, model, tokens, 32)
     seq, steps_out = tokens, []
     tok = torch.argmax(pf[:, -1:], dim=-1)
@@ -315,7 +449,16 @@ def test_decode_matches_forward(arch):
         logits, cache = lm.decode_step(cfg, model, cache, tok, 12 + i)
         steps_out.append(logits[:, 0])
         tok = torch.argmax(logits, dim=-1)
+    served_idx, _, served_aux = port.take()
     full, _ = lm.forward(cfg, model, seq)
-    _close(full[:, 11], pf[:, -1])
-    for i, got in enumerate(steps_out):
-        _close(full[:, 12 + i], got)
+    full_idx, _, full_aux = port.take()
+    assert all(a["drop_frac"] == 0.0 for a in served_aux + full_aux)
+    # the served routing, per MoE layer, as (16, k): 12 prompt tokens, 4 steps
+    n = len(full_idx)
+    served = [np.concatenate([served_idx[j]] + served_idx[n + j::n]) for j in range(n)]
+    first, flips = _first_flips(full_idx, served, 1, 16)
+    assert [("decode vs forward", *f) for f in flips] == FLIPS.get(arch + "+own", []), flips
+    outs = [pf[:, -1]] + steps_out
+    for i, got in enumerate(outs):
+        if 11 + i < first[0]:
+            _close(full[:, 11 + i], got)

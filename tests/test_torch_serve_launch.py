@@ -11,8 +11,10 @@
     prompts and are not compared.
   * ``--aqp`` at 16 × 256 with 4 queries prints the reference's
     ``mean reads`` and ``modes``.
-  * ``main`` in LM mode on the CPU prints the reference's two lines; a
-    ``cuda`` request without a GPU raises in both modes.
+  * ``main`` in LM mode on the CPU prints the reference's two lines (the
+    qwen smoke config, and mixtral-smoke for the MoE family, whose tokens
+    a second run repeats); a ``cuda`` request without a GPU raises in
+    both modes.
 """
 import argparse
 import dataclasses
@@ -109,6 +111,20 @@ def test_main_lm_mode_on_cpu(capsys):
     again = serve.serve_loop(run.cfg, run.model, run.prompts, 3, 8 + 3 + 8)
     np.testing.assert_array_equal(again.tokens, run.served.tokens)
     assert dataclasses.asdict(run.cfg) == dataclasses.asdict(ref_get_smoke("qwen1.5-0.5b"))
+
+
+def test_main_moe_mode_on_cpu(capsys):
+    """The MoE family through the entry point: mixtral-smoke (experts, a
+    sliding window), its greedy tokens the same on a second run."""
+    run = serve.main(["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu", "--gen", "3",
+                      "--batch", "2", "--prompt-len", "8"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "arch=mixtral-smoke batch=2 prompt=8 gen=3"
+    assert run.served.tokens.shape == (2, 4)
+    assert all(np.isfinite(s.float().numpy()).all() for s in run.served.step_logits)
+    again = serve.serve_loop(run.cfg, run.model, run.prompts, 3, 8 + 3 + 8)
+    np.testing.assert_array_equal(again.tokens, run.served.tokens)
+    assert dataclasses.asdict(run.cfg) == dataclasses.asdict(ref_get_smoke("mixtral-8x22b"))
 
 
 @pytest.mark.parametrize("argv", [["--smoke"], ["--aqp"]], ids=["lm", "aqp"])

@@ -16,13 +16,19 @@ Held across the two packages, on the same numpy inputs:
     moves the norm (and the clip scale) by about 3e-5 here: against the
     jitted reference ``grad_norm`` is held at ``rtol=1e-4``;
   * `lm.chunked_ce` (with a chunk that forces the padding) and
-    `lm.loss_fn` on carried qwen-smoke (MHA, tied head) and yi-6b-smoke
-    (GQA, untied head) weights, with and without ``loss_weights``: the
-    loss at ``rtol=1e-3`` and each gradient leaf within a relative L2
-    error of ``5e-2`` (the reference's own jitted and op-by-op lowerings
-    of this bf16 backward differ by up to 4.0e-2); with f32 weights and
-    activations in both, the loss at ``rtol=1e-5`` and each leaf at
-    ``1e-4``;
+    `lm.loss_fn` on carried qwen-smoke (MHA, tied head), yi-6b-smoke
+    (GQA, untied head), mixtral-smoke (experts, a window) and, in f32,
+    deepseek-smoke (MLA, a leading dense layer, shared experts) weights,
+    with and without ``loss_weights``: the loss and the router's
+    ``lb_loss`` and ``z_loss`` at ``rtol=1e-3`` and each gradient leaf
+    within a relative L2 error of ``5e-2`` (the reference's own jitted
+    and op-by-op lowerings of this bf16 backward differ by up to 4.0e-2);
+    with f32 weights and activations in both, the loss at ``rtol=1e-5``
+    and each leaf at ``1e-4``.  Where bf16 rounding routes a token to
+    other experts (``LOSS_FLIPS``), the gradients are taken on the
+    reference's routing;
+  * `carry.train_state` of a deepseek-smoke int8 state (``lead``, the
+    experts, MLA) bit for bit;
   * `train.steps.make_train_step` from `carry.lm_params` +
     `carry.train_state` (bit for bit) of the reference's state after its
     first step, with 1 and 2 microbatches: 2 steps with f32 states, the
@@ -57,6 +63,8 @@ from repro_torch.models import lm
 from repro_torch.train import optimizer as opt
 from repro_torch.train import steps
 from repro_torch.train import tree
+from test_torch_lm import _first_flips
+from test_torch_moe import PortRouting, ReferenceRouting, force_routing
 
 BF16_STEP = 2.0 ** -7  # one bf16 step relative to the value (8 significant bits)
 LOSS_RTOL = 1e-3
@@ -206,6 +214,9 @@ LOSS_CASES = {  # name → (arch, loss_weights, dtype of the weights and activat
     "yi-weighted": ("yi_6b", True, "bf16"),
     "qwen-f32": ("qwen1_5_0_5b", True, "f32"),
     "yi-f32": ("yi_6b", True, "f32"),
+    "mixtral-weighted": ("mixtral_8x22b", True, "bf16"),
+    "mixtral-f32": ("mixtral_8x22b", True, "f32"),
+    "deepseek-f32": ("deepseek_v2_236b", True, "f32"),
 }
 # bf16: the reference's own two lowerings of this backward (jitted against
 # op by op under `jax.disable_jit`) differ by up to 4.0e-2 relative L2 on
@@ -214,6 +225,17 @@ LOSS_CASES = {  # name → (arch, loss_weights, dtype of the weights and activat
 # 5e-2.  f32: the same function in another summation order.
 GRAD_TOL = {"bf16": 5e-2, "f32": 1e-4}
 LOSS_TOL = {"bf16": LOSS_RTOL, "f32": 1e-5}
+# Tokens that the two packages route to different expert sets (a near tie
+# of the router that bf16 rounding breaks; ROADMAP.md § 3), the first of
+# each row as (MoE call, row, position): mixtral-smoke's layer 2 routes
+# rows 0 and 1 at tokens 0 and 8 to experts {0, 1} in the reference and
+# {0, 3} in the port (probabilities 0.2265 and 0.2228, 0.1572 and 0.1550).
+# A flip moves the expert counts, so the router's lb_loss and z_loss are
+# then not compared (the loss, whose share of them is 0.01·lb + 1e-4·z,
+# still is), and it moves every gradient upstream of it (blocks.1.mix.wo
+# at 5.07e-2 here): the gradients are then those of the port's model on
+# the reference's routing (`test_torch_moe.force_routing`).
+LOSS_FLIPS = {"mixtral-weighted": [(2, 0, 0), (2, 1, 8)]}
 
 
 @pytest.mark.parametrize("case", LOSS_CASES)
@@ -232,19 +254,31 @@ def test_loss_fn_matches_reference(case, monkeypatch):
         monkeypatch.setattr(lm, "DTYPE", torch.float32)
         params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
     batch = _batch(ref_cfg, 7, weights=weighted)
+    ref_routing = ReferenceRouting(monkeypatch)
     (loss, metrics), grads = jax.jit(jax.value_and_grad(
         partial(ref_lm.loss_fn, ref_cfg), has_aux=True))(params, _ref_batch(batch))
 
+    ref_calls = ref_routing.take()[0]
     model = carry.lm_params(jax.tree.map(np.asarray, params), cfg, "cpu")
     if dtype == "f32":
         model = model.float()
         model.load_state_dict({k: torch.as_tensor(v) for k, v in _named(params).items()})
     model.requires_grad_(True)
+    port = PortRouting(monkeypatch)
     got, aux = lm.loss_fn(cfg, model, _port_batch(batch))
+    flips = _first_flips(ref_calls, port.take()[0], *batch["tokens"].shape)[1]
+    assert flips == LOSS_FLIPS.get(case, []), flips
     np.testing.assert_allclose(float(got), float(loss), rtol=LOSS_TOL[dtype])
     np.testing.assert_allclose(float(aux["ce"]), float(metrics["ce"]), rtol=LOSS_TOL[dtype])
-    assert float(aux["lb_loss"]) == float(metrics["lb_loss"]) == 0.0
+    for k in ("lb_loss", "z_loss"):  # the router's terms: zeros without experts
+        if not flips:
+            np.testing.assert_allclose(float(aux[k]), float(metrics[k]), rtol=LOSS_TOL[dtype])
+        assert (float(metrics[k]) == 0.0) == (not cfg.is_moe)
     names, leaves = zip(*model.named_parameters())
+    if flips:
+        force_routing(monkeypatch, ref_calls)
+        got, _ = lm.loss_fn(cfg, model, _port_batch(batch))
+        np.testing.assert_allclose(float(got), float(loss), rtol=LOSS_TOL[dtype])
     port_grads = torch.autograd.grad(got, leaves)
     want = _named(grads)  # the grads in the port's layout
     assert set(names) == set(want)
@@ -255,7 +289,7 @@ def test_loss_fn_matches_reference(case, monkeypatch):
 
 def _named(ref_tree) -> dict:
     """The reference's param-shaped tree as the port's state-dict names →
-    f32 numpy (``slots`` unstacked into blocks)."""
+    f32 numpy (``slots`` unstacked into blocks, ``lead`` as ``lead.i``)."""
     out = {}
     for k, v in ref_tree.items():
         if k == "slots":
@@ -263,7 +297,7 @@ def _named(ref_tree) -> dict:
                 for name, a in carry._flat(slot):
                     for u in range(a.shape[0]):
                         out[f"blocks.{u * len(v) + j}.{name}"] = np.asarray(a[u], np.float32)
-        elif isinstance(v, dict):
+        elif isinstance(v, (dict, list)):
             for name, a in carry._flat(v):
                 out[f"{k}.{name}"] = np.asarray(a, np.float32)
         else:
@@ -345,6 +379,36 @@ def test_train_step_matches_reference(micro, state_dtype):
         np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=2e-2)
         np.testing.assert_allclose(float(got["lr"]), float(want["lr"]), rtol=1e-6)
     assert int(port_state["step"]) == 1 + len(compared)
+
+
+def test_train_state_carries_lead_and_experts():
+    """`carry.train_state` of a deepseek-smoke int8 AdamW state after one
+    update (nonzero moments, ``(q, scale)`` pairs): the tree of
+    `lm.param_tree` (``lead``, the f32 router, the experts, MLA), every
+    leaf bit for bit."""
+    arch, state_dtype = "deepseek_v2_236b", "int8"
+    ref_cfg, cfg = ref_configs.get_smoke(arch), configs.get_smoke(arch)
+    ocfg = ref_opt.AdamWConfig(state_dtype=state_dtype)
+    params = reference_params(ref_cfg, seed=2)
+    grads = reference_params(ref_cfg, seed=3)
+    _, state, _ = jax.jit(partial(ref_opt.apply_updates, ocfg))(
+        params, grads, ref_opt.init_state(ocfg, params))
+    np_params, np_state = jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, state)
+    model = carry.lm_params(np_params, cfg, "cpu")
+    port_state = carry.train_state(np_params, np_state, cfg, "cpu")
+    fresh = opt.init_state(opt.AdamWConfig(state_dtype=state_dtype), lm.param_tree(model))
+    assert tree.flatten(port_state).keys() == tree.flatten(fresh).keys()
+    assert any(path.startswith("m/lead/0/mix/wukv") for path in tree.flatten(port_state))
+    for mv in ("m", "v"):
+        got = tree.flatten(port_state[mv])
+        for path, a in tree.flatten(np_state[mv]).items():
+            parts = path.split("/")
+            if parts[0] == "slots":
+                for u in range(a.shape[0]):
+                    b = got["/".join(["blocks", str(u)] + parts[2:])]
+                    np.testing.assert_array_equal(b.numpy(), np.asarray(a[u]))
+            else:
+                np.testing.assert_array_equal(got[path].numpy(), np.asarray(a))
 
 
 def test_compress_pod_grads_not_ported():
