@@ -151,8 +151,9 @@ def _flat(tree, prefix=""):
 
 
 def lm_params(ref_params, cfg, device=None):
-    """The port's `LM` with the reference's weights, bit for bit (the
-    router's f32 too).  The reference stacks pattern slot j's blocks along
+    """The port's `LM` with the reference's weights, bit for bit (the f32
+    leaves too: the router, and the recurrent blocks' ``lam``, ``a_log``,
+    ``d_skip`` and ``dt_bias``).  The reference stacks pattern slot j's blocks along
     a unit axis (``params["slots"][j]``); unit u's slot j is the port's
     block ``u·period + j``.  Its ``params["lead"][i]`` is the port's
     ``lead.i``."""
@@ -175,8 +176,10 @@ def lm_params(ref_params, cfg, device=None):
 def lm_cache(ref_cache, cfg, device=None):
     """The port's per-layer cache list from the reference's: the leading
     dense layers' (``cache["lead"]``) first, then the per-slot stacked
-    ones (``cache["slots"][j][name][u]``), each layer's dict with the
-    reference's names (``k``/``v``, or MLA's ``ckv``/``kpe``)."""
+    ones (``cache["slots"][j][name][u]``, a ragged tail's padded slots
+    included), each layer's dict with the reference's names and dtypes
+    (``k``/``v``, MLA's ``ckv``/``kpe``, or the recurrent blocks' bf16
+    ``conv`` ring and f32 ``rec``/``ssm`` state)."""
     period = len(cfg.block_pattern)
     slots = ref_cache["slots"]
     n_units = np.asarray(next(iter(slots[0].values()))).shape[0]

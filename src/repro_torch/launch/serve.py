@@ -10,7 +10,8 @@ AQP mode serves error-bounded analytics queries through the unified
 
 ``--device`` is ``cuda`` by default; ``cpu`` runs the plain versions (the
 tests).  A ``cuda`` request without a GPU raises: nothing continues on
-the CPU.  The dense and MoE families serve (`repro_torch.models.lm`).
+the CPU.  The dense, MoE, hybrid (recurrentgemma) and SSM (mamba2)
+families serve (`repro_torch.models.lm`).
 """
 from __future__ import annotations
 

@@ -8,9 +8,9 @@ Features exercised: PS³ shard selection + weighted loss, checkpoint/resume
 
 ``--device`` is ``cuda`` by default; ``cpu`` runs the plain versions (the
 tests, with ``--smoke``).  A ``cuda`` request without a GPU raises:
-nothing continues on the CPU.  The dense and MoE families train
-(`repro_torch.models.lm`); the MoE family's loss and gradients are held
-to the reference on the CPU only so far.
+nothing continues on the CPU.  The dense, MoE, hybrid and SSM families
+train (`repro_torch.models.lm`); all but the dense family's loss and
+gradients are held to the reference on the CPU only so far.
 """
 from __future__ import annotations
 

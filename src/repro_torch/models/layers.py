@@ -26,6 +26,7 @@ the model it trains.  `remat` is the reference's `jax.checkpoint`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -89,6 +90,37 @@ def _f32(x) -> float:
     it reaches the card as a kernel argument: `torch.tensor(x, device=
     "cuda")` would be a synchronous host-to-device copy on every call."""
     return float(np.float32(x))
+
+
+# --------------------------------------------------------------------------
+# the reference's `jax.nn` activations, op by op
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _weak(v: float, dtype: torch.dtype) -> float:
+    """A Python scalar rounded to ``dtype``, as JAX rounds a weak-typed
+    scalar operand of a bf16 op."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def softplus(x):
+    """``log(1 + eˣ)`` as `jax.nn.softplus` computes it (`jnp.logaddexp(x,
+    0)`): ``max(x, 0) + log1p(exp(−|x|))``."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def gelu(x):
+    """`jax.nn.gelu`'s default, the tanh form, op by op in ``x``'s dtype
+    with its constants rounded to it: the reference's bits on the CPU,
+    where `F.gelu` rounds once."""
+    c, k = _weak(math.sqrt(2 / math.pi), x.dtype), _weak(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
+
+
+def silu(x):
+    """`jax.nn.silu`: ``x · 1/(1 + e^(−x))``, each op in ``x``'s dtype (XLA's
+    bf16 logistic rounds each op; `F.silu` rounds once).  The recurrent
+    blocks use it; the MLP keeps `F.silu`."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 # --------------------------------------------------------------------------

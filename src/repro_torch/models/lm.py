@@ -1,4 +1,5 @@
-"""Model assembly: the dense and MoE decoder LMs behind the reference's API.
+"""Model assembly: the dense, MoE, hybrid and SSM decoder LMs behind the
+reference's API.
 
   init_params(cfg, generator, device)       → LM (an nn.Module)
   param_tree(params)                        → its parameters as a nested tree
@@ -12,20 +13,24 @@ across units for one `lax.scan`; here the blocks are an `nn.ModuleList`
 in layer order (layer ``u·period + j`` is unit u's slot j) and the scan
 is a Python loop.  DeepSeek's leading dense layers (attention + a plain
 MLP of width ``d_ff``) are the `nn.ModuleList` ``lead``, run before the
-blocks.  The decode cache is preallocated per layer (the lead's first)
-and written in place.
+blocks.  A ragged pattern's padded tail slots are inactive blocks
+(residual pass-through).  The decode cache is preallocated per layer
+(the lead's first) and written in place: K/V (or MLA's compressed
+pair) for attention, a bf16 conv ring and an f32 recurrent state for
+the RG-LRU and SSD blocks.
 
-Ported: the dense family and the MoE family (``block_pattern`` of
-``"attn"`` and ``"moe"`` blocks, MLA, the leading dense layers, the
-sliding window).  The other families and block kinds raise
-`NotImplementedError` at construction (`ROADMAP.md` § 1 item 10).
+Ported: the dense family, the MoE family (``"attn"`` and ``"moe"``
+blocks, MLA, the leading dense layers, the sliding window), the hybrid
+(recurrentgemma: ``"rglru"`` blocks beside local MQA attention) and the
+SSM (mamba2: ``"ssd"`` blocks, which have no MLP).  The other families
+raise `NotImplementedError` at construction (`ROADMAP.md` § 1 item 10).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models import mla, moe
+from repro_torch.models import mla, moe, rglru, ssd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     DTYPE,
@@ -44,8 +49,8 @@ from repro_torch.models.layers import (
 )
 
 
-PORTED_FAMILIES = ("dense", "moe")
-PORTED_KINDS = ("attn", "moe")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+PORTED_KINDS = ("attn", "moe", "rglru", "ssd")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -57,8 +62,8 @@ def check_ported(cfg: ModelConfig) -> None:
     missing += [f"block kind {k!r}" for k in sorted(set(cfg.block_pattern) - set(PORTED_KINDS))]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; only the dense and MoE "
-            "families are (ROADMAP.md § 1 item 10 orders the rest)"
+            f"{cfg.name}: {', '.join(missing)} not ported yet; only the dense, MoE, "
+            "hybrid and SSM families are (ROADMAP.md § 1 item 10 orders the rest)"
         )
 
 
@@ -67,10 +72,12 @@ def check_ported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 class Block(nn.Module):
     """Residual block: ``x + mix(norm1(x))``, then ``x + ffn(norm2(x))``.
-    The mix is `MLA` where the config has a kv rank, else GQA attention;
-    the ffn is an `MoE` for kind ``"moe"``, else a plain MLP of width
-    ``d_ff``.  ``active`` False is a padded tail slot of a ragged pattern
-    (the reference's inactive-tail gate)."""
+    The mix is an `RGLRU` or an `SSD` for those kinds, else `MLA` where
+    the config has a kv rank, else GQA attention; the ffn is an `MoE` for
+    kind ``"moe"``, else a plain MLP of width ``d_ff``.  An ``"ssd"``
+    block has no ``norm2`` and no ffn (mamba2's block is its mixer).
+    ``active`` False is a padded tail slot of a ragged pattern (the
+    reference's inactive-tail gate)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, active: bool, generator=None, *,
                  device=None):
@@ -79,8 +86,12 @@ class Block(nn.Module):
         self.kind = kind
         self.active = active
         self.norm1 = RMSNorm(d, cfg.norm_eps, device=device)
-        mix = mla.MLA if cfg.is_mla else Attention
+        mix = {"rglru": rglru.RGLRU, "ssd": ssd.SSD}.get(
+            kind, mla.MLA if cfg.is_mla else Attention)
         self.mix = mix(cfg, generator, device=device)
+        if kind == "ssd":
+            self.norm2 = self.ffn = None
+            return
         self.norm2 = RMSNorm(d, cfg.norm_eps, device=device)
         self.ffn = (moe.MoE(cfg, generator, device=device) if kind == "moe"
                     else MLP(d, cfg.d_ff, generator, device=device))
@@ -93,6 +104,10 @@ def _gated(x, h, active: bool):
 
 def _mix_apply(p: Block, h, cfg, *, causal=True, positions=None):
     """Full-sequence mixer. Returns (out, cache contribution)."""
+    if p.kind == "rglru":
+        return rglru.rglru_apply(p.mix, h, cfg)
+    if p.kind == "ssd":
+        return ssd.ssd_apply(p.mix, h, cfg)
     if cfg.is_mla:
         return mla.mla_apply(p.mix, h, cfg, positions=positions)
     window = cfg.window if cfg.window > 0 else 0
@@ -113,6 +128,8 @@ def _block_apply(p: Block, x, cfg, *, causal=True, positions=None):
     h, kv = _mix_apply(p, rmsnorm(p.norm1, x, cfg.norm_eps), cfg, causal=causal,
                        positions=positions)
     x = _gated(x, h, p.active)
+    if p.kind == "ssd":
+        return x, kv, None
     out, aux = _ffn(p, rmsnorm(p.norm2, x, cfg.norm_eps), cfg)
     if aux is not None:
         aux = {k: aux[k] if p.active else aux[k] * 0 for k in ("lb_loss", "z_loss")}
@@ -306,30 +323,55 @@ def _layers(params: LM) -> list[Block]:
     return [*params.lead, *params.blocks]
 
 
-def _layer_cache(cfg, batch: int, max_len: int, device) -> dict:
-    """``{"ckv", "kpe"}`` (B, max_len, rank) zeros for MLA, else a
-    ``{"k", "v"}`` pair of (B, S, K, hd) zeros; S is ``min(max_len,
-    window)`` for sliding-window attention (a ring)."""
+def _layer_cache(cfg, kind: str, batch: int, max_len: int, device) -> dict:
+    """Zeros with the reference's names and dtypes: ``{"conv", "rec"}``
+    ((B, cw-1, w) bf16, (B, w) f32) for an RG-LRU block, ``{"conv",
+    "ssm"}`` ((B, cw-1, din+2gn) bf16, (B, h, p, n) f32) for an SSD block,
+    ``{"ckv", "kpe"}`` (B, max_len, rank) for MLA, else a ``{"k", "v"}``
+    pair of (B, S, K, hd); S is ``min(max_len, window)`` for
+    sliding-window attention (a ring)."""
+    def zeros(shape, dtype=DTYPE):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if kind == "rglru":
+        w = cfg.rglru_width or cfg.d_model
+        return {"conv": zeros((batch, cfg.conv1d_width - 1, w)),
+                "rec": zeros((batch, w), torch.float32)}
+    if kind == "ssd":
+        din, h, p_, g, n = ssd.ssd_dims(cfg)
+        return {"conv": zeros((batch, cfg.conv1d_width - 1, din + 2 * g * n)),
+                "ssm": zeros((batch, h, p_, n), torch.float32)}
     if cfg.is_mla:
-        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=DTYPE, device=device),
-                "kpe": torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=DTYPE,
-                                   device=device)}
+        return {"ckv": zeros((batch, max_len, cfg.kv_lora_rank)),
+                "kpe": zeros((batch, max_len, cfg.qk_rope_head_dim))}
     s = min(max_len, cfg.window) if cfg.window > 0 else max_len
     shape = (batch, s, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=DTYPE, device=device),
-            "v": torch.zeros(shape, dtype=DTYPE, device=device)}
+    return {"k": zeros(shape), "v": zeros(shape)}
+
+
+def _kinds(cfg) -> list[str]:
+    """Each layer's block kind in layer order (the leading dense layers
+    first, then the pattern over every unit, padded slots included)."""
+    _, n_units, _ = _units(cfg)
+    return ["attn"] * cfg.first_dense_layers + list(cfg.block_pattern) * n_units
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list[dict]:
     """One cache per layer, in layer order (the leading dense layers'
     first): `_layer_cache`."""
     check_ported(cfg)
-    period, n_units, _ = _units(cfg)
-    return [_layer_cache(cfg, batch, max_len, device)
-            for _ in range(cfg.first_dense_layers + n_units * period)]
+    return [_layer_cache(cfg, kind, batch, max_len, device) for kind in _kinds(cfg)]
 
 
 def _mix_decode(p: Block, h, cfg, c: dict, pos: int):
+    if p.kind == "rglru":
+        out, st = rglru.rglru_decode(p.mix, h, cfg, c["conv"], c["rec"])
+        _store_cache(cfg, p.kind, c, st)
+        return out
+    if p.kind == "ssd":
+        out, st = ssd.ssd_decode(p.mix, h, cfg, c["conv"], c["ssm"])
+        _store_cache(cfg, p.kind, c, st)
+        return out
     if cfg.is_mla:
         return mla.mla_decode(p.mix, h, cfg, c["ckv"], c["kpe"], pos)[0]
     return attn_decode(p.mix, h, cfg, c["k"], c["v"], pos, window=cfg.window)[0]
@@ -338,23 +380,27 @@ def _mix_decode(p: Block, h, cfg, c: dict, pos: int):
 def decode_step(cfg: ModelConfig, params: LM, cache: list[dict], tokens, pos: int):
     """One decode step. tokens: (B, 1); pos: the absolute position.
 
-    Writes the token's cache entries into ``cache`` in place; returns
-    (logits (B, 1, V), cache).  An MoE block routes the B tokens of the
-    step (its capacity is that of B tokens).
+    Writes the token's cache entries (and the recurrent blocks' states)
+    into ``cache`` in place; returns (logits (B, 1, V), cache).  An
+    inactive tail slot runs and writes its cache, its output gated by 0,
+    as in the reference.  An MoE block routes the B tokens of the step
+    (its capacity is that of B tokens).
     """
     pin_f32_accumulation()
     x = embed(params.embed, tokens).to(DTYPE)
     for blk, c in zip(_layers(params), cache):
         out = _mix_decode(blk, rmsnorm(blk.norm1, x, cfg.norm_eps), cfg, c, pos)
         x = _gated(x, out, blk.active)
-        x = _gated(x, _ffn(blk, rmsnorm(blk.norm2, x, cfg.norm_eps), cfg)[0], blk.active)
+        if blk.kind != "ssd":
+            x = _gated(x, _ffn(blk, rmsnorm(blk.norm2, x, cfg.norm_eps), cfg)[0], blk.active)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return _logits(cfg, params, x), cache
 
 
 def prefill(cfg: ModelConfig, params: LM, tokens, max_len: int):
     """Process a prompt, building the decode cache.  Returns (logits, cache)
-    with the logits of every prompt position."""
+    with the logits of every prompt position.  Inactive tail slots are
+    skipped and keep a zero cache (the reference's)."""
     pin_f32_accumulation()
     b, s = tokens.shape[0], tokens.shape[1]
     x = embed(params.embed, tokens).to(DTYPE)
@@ -365,18 +411,25 @@ def prefill(cfg: ModelConfig, params: LM, tokens, max_len: int):
             continue
         out, st = _mix_apply(blk, rmsnorm(blk.norm1, x, cfg.norm_eps), cfg, positions=positions)
         x = x + out
-        x = x + _ffn(blk, rmsnorm(blk.norm2, x, cfg.norm_eps), cfg)[0]
-        _store_cache(cfg, c, st)
+        if blk.kind != "ssd":
+            x = x + _ffn(blk, rmsnorm(blk.norm2, x, cfg.norm_eps), cfg)[0]
+        _store_cache(cfg, blk.kind, c, st)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return _logits(cfg, params, x), cache
 
 
-def _store_cache(cfg, slot_cache: dict, st) -> None:
-    """Write a prompt's cache entries at slot 0: MLA's ``(c_kv, k_rope)``,
-    or K/V.  A windowed cache keeps the last ``w`` keys there, which agrees
-    with `attn_decode`'s ``pos % w`` ring only for a prompt no longer than
-    the window (the reference's "prompt ≤ window in our shapes";
-    `ROADMAP.md` § 3)."""
+def _store_cache(cfg, kind: str, slot_cache: dict, st) -> None:
+    """Write a prompt's cache entries: the recurrent blocks' conv ring and
+    state (after each decode step too), or at slot 0 MLA's ``(c_kv,
+    k_rope)`` or K/V.  A windowed cache keeps the last ``w`` keys there,
+    which agrees with `attn_decode`'s ``pos % w`` ring only for a prompt
+    no longer than the window (the reference's "prompt ≤ window in our
+    shapes"; `ROADMAP.md` § 3)."""
+    if kind in ("rglru", "ssd"):
+        conv, state = st
+        slot_cache["conv"].copy_(conv)
+        slot_cache["rec" if kind == "rglru" else "ssm"].copy_(state)
+        return
     if cfg.is_mla:
         ckv, kpe = st
         slot_cache["ckv"][:, :ckv.shape[1]] = ckv

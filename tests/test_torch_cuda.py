@@ -18,8 +18,8 @@ gives group_aggregate's bits (one shared aggregation).  The device GBDT fit on t
 host fit's forest bit for bit.  A stream of appends folded on the card
 equals a cold rebuild of the grown table bit for bit.  A qwen-smoke train
 step on the card agrees with the CPU (the loss, every gradient and two
-steps' losses, at the CPU parity tests' tolerances), and so do the MoE
-smoke models' prefill and decode steps.
+steps' losses, at the CPU parity tests' tolerances), and so do the MoE,
+hybrid and SSM smoke models' prefill and decode steps.
 """
 import numpy as np
 import pytest
@@ -1050,3 +1050,43 @@ def test_moe_smoke_card_matches_cpu(cuda, arch, monkeypatch):
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=5e-2, atol=5e-2)
         assert np.corrcoef(a.ravel().numpy(), b.ravel().numpy())[0, 1] > 0.999
     assert (first > 11).any()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_130m"])
+def test_recurrent_smoke_card_matches_cpu(cuda, arch):
+    """rg-smoke (RG-LRU blocks, local MQA attention, a ragged tail) and
+    mamba2-smoke (SSD blocks) on the card against the CPU, from the same
+    weights: a prefill of 2 × 12 tokens and 3 decode steps fed the CPU's
+    greedy tokens, the logits at ``rtol=5e-2, atol=5e-2`` (``atol=0.15``
+    for the hybrid, `tests/test_arch_smoke.py`) with a correlation above
+    0.999, and every layer's cache after the last step (the conv rings,
+    the f32 recurrent states, the attention's K/V) at the same rule."""
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+
+    cfg = get_smoke(arch)
+    tol = dict(rtol=5e-2, atol=0.15 if cfg.family == "hybrid" else 5e-2)
+    models = {"cpu": lm.init_params(cfg, torch.Generator().manual_seed(0))}
+    models["card"] = copy.deepcopy(models["cpu"]).to(cuda)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12)))
+    outs, caches, fed = {}, {}, []
+    for where in ("cpu", "card"):
+        dev = cuda if where == "card" else torch.device("cpu")
+        with torch.inference_mode():
+            logits, cache = lm.prefill(cfg, models[where], tokens.to(dev), 20)
+            seen = [logits]
+            for i in range(3):
+                if where == "cpu":
+                    fed.append(torch.argmax(seen[-1][:, -1:], dim=-1))
+                step, cache = lm.decode_step(cfg, models[where], cache, fed[i].to(dev), 12 + i)
+                seen.append(step)
+        outs[where] = [x.float().cpu() for x in seen]
+        caches[where] = [{k: v.float().cpu() for k, v in c.items()} for c in cache]
+    pairs = list(zip(outs["card"], outs["cpu"]))
+    pairs += [(g[k], w[k]) for g, w in zip(caches["card"], caches["cpu"]) for k in w]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+        if want.any():
+            assert np.corrcoef(want.ravel().numpy(), got.ravel().numpy())[0, 1] > 0.999

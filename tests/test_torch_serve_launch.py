@@ -12,9 +12,9 @@
   * ``--aqp`` at 16 × 256 with 4 queries prints the reference's
     ``mean reads`` and ``modes``.
   * ``main`` in LM mode on the CPU prints the reference's two lines (the
-    qwen smoke config, and mixtral-smoke for the MoE family, whose tokens
-    a second run repeats); a ``cuda`` request without a GPU raises in
-    both modes.
+    qwen smoke config, and mixtral-smoke for the MoE family, rg-smoke for
+    the hybrid and mamba2-smoke for the SSM, whose tokens a second run
+    repeats); a ``cuda`` request without a GPU raises in both modes.
 """
 import argparse
 import dataclasses
@@ -125,6 +125,23 @@ def test_main_moe_mode_on_cpu(capsys):
     again = serve.serve_loop(run.cfg, run.model, run.prompts, 3, 8 + 3 + 8)
     np.testing.assert_array_equal(again.tokens, run.served.tokens)
     assert dataclasses.asdict(run.cfg) == dataclasses.asdict(ref_get_smoke("mixtral-8x22b"))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
+def test_main_recurrent_mode_on_cpu(arch, capsys):
+    """The hybrid (RG-LRU blocks, local MQA attention, a ragged tail) and
+    the SSM through the entry point, with no extras: finite logits, and
+    the same greedy tokens on a second run."""
+    run = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--gen", "3",
+                      "--batch", "2", "--prompt-len", "8"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == f"arch={run.cfg.name} batch=2 prompt=8 gen=3"
+    assert run.served.tokens.shape == (2, 4)
+    assert run.served.prefill_logits.shape == (2, 8, run.cfg.vocab)
+    assert all(np.isfinite(s.float().numpy()).all() for s in run.served.step_logits)
+    again = serve.serve_loop(run.cfg, run.model, run.prompts, 3, 8 + 3 + 8)
+    np.testing.assert_array_equal(again.tokens, run.served.tokens)
+    assert dataclasses.asdict(run.cfg) == dataclasses.asdict(ref_get_smoke(arch))
 
 
 @pytest.mark.parametrize("argv", [["--smoke"], ["--aqp"]], ids=["lm", "aqp"])

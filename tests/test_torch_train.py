@@ -17,8 +17,10 @@ Held across the two packages, on the same numpy inputs:
     jitted reference ``grad_norm`` is held at ``rtol=1e-4``;
   * `lm.chunked_ce` (with a chunk that forces the padding) and
     `lm.loss_fn` on carried qwen-smoke (MHA, tied head), yi-6b-smoke
-    (GQA, untied head), mixtral-smoke (experts, a window) and, in f32,
-    deepseek-smoke (MLA, a leading dense layer, shared experts) weights,
+    (GQA, untied head), mixtral-smoke (experts, a window), mamba2-smoke
+    (SSD blocks) and, in f32, deepseek-smoke (MLA, a leading dense
+    layer, shared experts) and rg-smoke (RG-LRU blocks, local MQA
+    attention, a ragged tail) weights,
     with and without ``loss_weights``: the loss and the router's
     ``lb_loss`` and ``z_loss`` at ``rtol=1e-3`` and each gradient leaf
     within a relative L2 error of ``5e-2`` (the reference's own jitted
@@ -37,13 +39,13 @@ Held across the two packages, on the same numpy inputs:
     ``rtol=1e-6``;
 
 and on the port alone: remat on and off give the same loss and grads
-bit for bit, the loss and grads are finite on every dense smoke config
-(the reference's `tests/test_arch_smoke.py::test_forward_loss_grad`), a
-resumed run replays the uninterrupted run's losses (the reference's
-`test_train_resume_matches_uninterrupted`, on qwen-smoke because its
-mamba2 config is not ported yet), and a ``cuda`` request without a GPU
-raises.  The smoke sequences are 16 tokens, inside one kv chunk, so the
-masked-row NaN of `ROADMAP.md` § 3 is out of reach.
+bit for bit, the loss and grads are finite on every dense smoke config,
+rg-smoke and mamba2-smoke (the reference's `tests/test_arch_smoke.py::
+test_forward_loss_grad`), a resumed run replays the uninterrupted run's
+losses (the reference's `test_train_resume_matches_uninterrupted`, on
+its own arch mamba2-smoke and on qwen-smoke), and a ``cuda`` request
+without a GPU raises.  The smoke sequences are 16 tokens, inside one kv
+chunk, so the masked-row NaN of `ROADMAP.md` § 3 is out of reach.
 """
 from functools import partial
 
@@ -63,32 +65,12 @@ from repro_torch.models import lm
 from repro_torch.train import optimizer as opt
 from repro_torch.train import steps
 from repro_torch.train import tree
-from test_torch_lm import _first_flips
+from test_torch_lm import _first_flips, reference_params
 from test_torch_moe import PortRouting, ReferenceRouting, force_routing
 
 BF16_STEP = 2.0 ** -7  # one bf16 step relative to the value (8 significant bits)
 LOSS_RTOL = 1e-3
 DENSE = ("qwen1_5_0_5b", "yi_6b", "llama3_405b")
-
-
-def reference_params(cfg, seed):
-    """The reference's param pytree filled from numpy: normal ×
-    1/sqrt(fan_in) weights, norm scales about 1 and small biases
-    (`tests/test_torch_lm.py::reference_params`)."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, spec):
-        name = path[-1].key
-        if name == "scale":
-            a = 1.0 + 0.1 * rng.standard_normal(spec.shape)
-        elif name in ("bq", "bk", "bv"):
-            a = 0.1 * rng.standard_normal(spec.shape)
-        else:
-            fan_in = spec.shape[-1] if name == "table" else spec.shape[-2]
-            a = rng.standard_normal(spec.shape) / np.sqrt(fan_in)
-        return jnp.asarray(a, spec.dtype)
-
-    return jax.tree_util.tree_map_with_path(leaf, ref_lm.param_shapes(cfg))
 
 
 def _batch(cfg, seed, b=4, s=16, weights=True):
@@ -217,6 +199,9 @@ LOSS_CASES = {  # name → (arch, loss_weights, dtype of the weights and activat
     "mixtral-weighted": ("mixtral_8x22b", True, "bf16"),
     "mixtral-f32": ("mixtral_8x22b", True, "f32"),
     "deepseek-f32": ("deepseek_v2_236b", True, "f32"),
+    "rg-f32": ("recurrentgemma_9b", True, "f32"),
+    "mamba2-weighted": ("mamba2_130m", True, "bf16"),
+    "mamba2-f32": ("mamba2_130m", True, "f32"),
 }
 # bf16: the reference's own two lowerings of this backward (jitted against
 # op by op under `jax.disable_jit`) differ by up to 4.0e-2 relative L2 on
@@ -318,7 +303,7 @@ def test_remat_leaves_loss_and_grads_unchanged():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ("recurrentgemma_9b", "mamba2_130m"))
 def test_forward_loss_grad(arch):
     cfg = configs.get_smoke(arch)
     model = lm.init_params(cfg, torch.Generator().manual_seed(0)).requires_grad_(True)
@@ -421,17 +406,20 @@ def test_compress_pod_grads_not_ported():
 # --------------------------------------------------------------------------
 # the launcher
 # --------------------------------------------------------------------------
-def _main(ckpt_dir, n_steps, *extra):
-    return train.main(["--smoke", "--device", "cpu", "--eval-backend", "host", "--steps",
-                       str(n_steps), "--batch", "4", "--ckpt-dir", str(ckpt_dir),
+def _main(ckpt_dir, n_steps, *extra, arch="qwen1.5-0.5b"):
+    return train.main(["--arch", arch, "--smoke", "--device", "cpu", "--eval-backend", "host",
+                       "--steps", str(n_steps), "--batch", "4", "--ckpt-dir", str(ckpt_dir),
                        "--ckpt-every", "2", *extra])
 
 
-def test_train_resume_matches_uninterrupted(tmp_path):
-    a = _main(tmp_path / "a", 4)
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-130m"])
+def test_train_resume_matches_uninterrupted(tmp_path, arch):
+    """The reference's test on its own arch (mamba2) and on qwen."""
+    run = partial(_main, arch=arch)
+    a = run(tmp_path / "a", 4)
     # crash after 2 steps: run to 2, then resume to 4 in a new call
-    b1 = _main(tmp_path / "b", 2)
-    b2 = _main(tmp_path / "b", 4, "--resume")
+    b1 = run(tmp_path / "b", 2)
+    b2 = run(tmp_path / "b", 4, "--resume")
     assert len(a) == 4 and len(b2) == 2
     np.testing.assert_allclose(b1, a[:2], rtol=2e-2, atol=2e-2)
     # the resumed tail reproduces the uninterrupted run's losses
