@@ -150,25 +150,43 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+def _split_stacked(tree: dict, cfg) -> tuple[dict, dict]:
+    """(``tree`` without ``slots`` and whisper's trees stacked along a
+    leading layer axis, {the port's dotted name: (stacked subtree, its
+    layer count)}): ``encoder.layers`` and ``cross``."""
+    rest = {k: v for k, v in tree.items() if k not in ("slots", "cross")}
+    stacked = {}
+    if "encoder" in tree:
+        rest["encoder"] = {k: v for k, v in tree["encoder"].items() if k != "layers"}
+        stacked["encoder.layers"] = (tree["encoder"]["layers"], cfg.n_enc_layers)
+    if "cross" in tree:
+        stacked["cross"] = (tree["cross"], cfg.n_layers)
+    return rest, stacked
+
+
 def lm_params(ref_params, cfg, device=None):
     """The port's `LM` with the reference's weights, bit for bit (the f32
     leaves too: the router, and the recurrent blocks' ``lam``, ``a_log``,
     ``d_skip`` and ``dt_bias``).  The reference stacks pattern slot j's blocks along
     a unit axis (``params["slots"][j]``); unit u's slot j is the port's
     block ``u·period + j``.  Its ``params["lead"][i]`` is the port's
-    ``lead.i``."""
+    ``lead.i``; whisper's stacked ``encoder.layers`` and ``cross`` trees
+    unstack into ``encoder.layers.i`` and ``cross.i``."""
     from repro_torch.models import lm
 
     model = lm.LM(cfg, device=device)
     period = len(cfg.block_pattern)
-    state = {}
-    for name, a in _flat({k: v for k, v in ref_params.items() if k != "slots"}):
-        state[name] = lm_tensor(a, device)
+    rest, stacked = _split_stacked(ref_params, cfg)
+    state = {name: lm_tensor(a, device) for name, a in _flat(rest)}
     for j, slot in enumerate(ref_params["slots"]):
         for name, a in _flat(slot):
             a = np.asarray(a)
             for u in range(a.shape[0]):
                 state[f"blocks.{u * period + j}.{name}"] = lm_tensor(a[u], device)
+    for prefix, (tree, n) in stacked.items():
+        for name, a in _flat(tree):
+            for i in range(n):
+                state[f"{prefix}.{i}.{name}"] = lm_tensor(np.asarray(a)[i], device)
     model.load_state_dict(state, strict=True)
     return model
 
@@ -179,14 +197,21 @@ def lm_cache(ref_cache, cfg, device=None):
     ones (``cache["slots"][j][name][u]``, a ragged tail's padded slots
     included), each layer's dict with the reference's names and dtypes
     (``k``/``v``, MLA's ``ckv``/``kpe``, or the recurrent blocks' bf16
-    ``conv`` ring and f32 ``rec``/``ssm`` state)."""
+    ``conv`` ring and f32 ``rec``/``ssm`` state); whisper's decoder
+    layer i also takes ``cross_k[i]``/``cross_v[i]`` of the reference's
+    (n_layers, B, S_enc, K, hd) pair."""
     period = len(cfg.block_pattern)
     slots = ref_cache["slots"]
     n_units = np.asarray(next(iter(slots[0].values()))).shape[0]
     lead = [{name: lm_tensor(a, device) for name, a in c.items()}
             for c in ref_cache.get("lead", [])]
-    return lead + [{name: lm_tensor(np.asarray(a)[u], device) for name, a in slots[j].items()}
-                   for u in range(n_units) for j in range(period)]
+    out = lead + [{name: lm_tensor(np.asarray(a)[u], device) for name, a in slots[j].items()}
+                  for u in range(n_units) for j in range(period)]
+    for name in ("cross_k", "cross_v"):
+        if name in ref_cache:
+            for i, a in enumerate(np.asarray(ref_cache[name])):
+                out[i][name] = lm_tensor(a, device)
+    return out
 
 
 def _map_arrays(tree, fn):
@@ -201,16 +226,24 @@ def _map_arrays(tree, fn):
 
 def _lm_tree(ref_tree, cfg, device):
     """A tree over the reference's params structure (``slots`` stacked
-    along the unit axis) in the port's `lm.param_tree` structure (a
-    ``blocks`` list in layer order)."""
+    along the unit axis, whisper's ``encoder.layers`` and ``cross`` along
+    the layer axis) in the port's `lm.param_tree` structure (a ``blocks``
+    list in layer order, ``encoder.layers`` and ``cross`` lists)."""
     from repro_torch.models import lm
 
     period, n_units, _ = lm._units(cfg)
-    out = {k: _map_arrays(v, lambda a: lm_tensor(a, device))
-           for k, v in ref_tree.items() if k != "slots"}
+
+    def unstacked(tree, n):
+        return [_map_arrays(tree, lambda a, i=i: lm_tensor(a[i], device)) for i in range(n)]
+
+    rest, stacked = _split_stacked(ref_tree, cfg)
+    out = {k: _map_arrays(v, lambda a: lm_tensor(a, device)) for k, v in rest.items()}
     slots = ref_tree["slots"]
     out["blocks"] = [_map_arrays(slots[j], lambda a, u=u: lm_tensor(a[u], device))
                      for u in range(n_units) for j in range(period)]
+    for prefix, (tree, n) in stacked.items():
+        parent, _, name = prefix.rpartition(".")
+        (out[parent] if parent else out)[name] = unstacked(tree, n)
     return out
 
 

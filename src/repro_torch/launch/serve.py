@@ -10,8 +10,13 @@ AQP mode serves error-bounded analytics queries through the unified
 
 ``--device`` is ``cuda`` by default; ``cpu`` runs the plain versions (the
 tests).  A ``cuda`` request without a GPU raises: nothing continues on
-the CPU.  The dense, MoE, hybrid (recurrentgemma) and SSM (mamba2)
-families serve (`repro_torch.models.lm`).
+the CPU.  Every family of `repro_torch.models.lm` serves.  The
+encoder-decoder (whisper) is fed (B, enc_positions, d) frame embeddings
+and the VLM (internvl) (B, n_img_tokens, d) image embeddings, both
+drawn from ``--seed`` after the prompts, as the reference draws them
+(the modality frontends are stubs).  The VLM's cache holds its image
+positions too: ``--max-len`` must hold the image, the prompt and
+``--gen``.
 """
 from __future__ import annotations
 
@@ -80,18 +85,26 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prefix_len(cfg) -> int:
+    """The positions before the prompt: a VLM's image tokens."""
+    return cfg.n_img_tokens if cfg.family == "vlm" else 0
+
+
 @torch.inference_mode()
-def serve_loop(cfg, model, prompts: torch.Tensor, gen: int, max_len: int) -> Served:
-    """Prefill ``prompts`` (B, S), then ``gen`` greedy decode steps."""
+def serve_loop(cfg, model, prompts: torch.Tensor, gen: int, max_len: int,
+               extras: dict | None = None) -> Served:
+    """Prefill ``prompts`` (B, S) with ``extras`` (`lm.prefill`'s
+    ``img_embeds``/``enc_frames``), then ``gen`` greedy decode steps from
+    the position after the image prefix and the prompt."""
     device = prompts.device
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(cfg, model, prompts, max_len)
+    logits, cache = lm.prefill(cfg, model, prompts, max_len, **(extras or {}))
     tok = torch.argmax(logits[:, -1:], dim=-1)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
     serve_step = steps_mod.make_serve_step(cfg)
-    pos0 = prompts.shape[1]
+    pos0 = prefix_len(cfg) + prompts.shape[1]
     out_tokens, step_logits = [tok], []
     t1 = time.perf_counter()
     for i in range(gen):
@@ -107,12 +120,29 @@ def serve_loop(cfg, model, prompts: torch.Tensor, gen: int, max_len: int) -> Ser
 
 @dataclasses.dataclass
 class LMRun:
-    """`main`'s LM mode: the config, the model, the prompts and the run."""
+    """`main`'s LM mode: the config, the model, the prompts, the extras
+    (``img_embeds``/``enc_frames``, empty for a text-only family), the
+    cache length and the run."""
 
     cfg: object
     model: lm.LM
     prompts: torch.Tensor
+    extras: dict
+    max_len: int
     served: Served
+
+
+def draw_extras(cfg, rng: np.random.Generator, batch: int, device) -> dict:
+    """The stub frontends' bf16 inputs from ``rng``, after the prompts, in
+    the reference's order, shapes and scale: image embeddings (B,
+    n_img_tokens, d) for the VLM, frame embeddings (B, enc_positions, d)
+    for the encoder-decoder."""
+    extras = {}
+    if cfg.family == "vlm":
+        extras["img_embeds"] = rng.normal(size=(batch, cfg.n_img_tokens, cfg.d_model)) * 0.02
+    if cfg.family == "encdec":
+        extras["enc_frames"] = rng.normal(size=(batch, cfg.enc_positions, cfg.d_model)) * 0.02
+    return {k: torch.as_tensor(v, device=device).to(torch.bfloat16) for k, v in extras.items()}
 
 
 def parse_args(argv=None):
@@ -142,15 +172,21 @@ def main(argv=None) -> LMRun | None:
         return aqp_main(args)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    lm.check_ported(cfg)
     device = ExecOptions(device=args.device).torch_device()
     rng = np.random.default_rng(args.seed)
     max_len = args.max_len or (args.prompt_len + args.gen + 8)
+    need = prefix_len(cfg) + args.prompt_len + args.gen
+    if prefix_len(cfg) and max_len < need:
+        raise ValueError(
+            f"{cfg.name}: a cache of {max_len} positions cannot hold the {prefix_len(cfg)} "
+            f"image tokens, the {args.prompt_len}-token prompt and {args.gen} generated "
+            f"tokens; pass --max-len {need} or more")
 
     model = lm.init_params(cfg, torch.Generator(device).manual_seed(args.seed), device)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
                               device=device)
-    served = serve_loop(cfg, model, prompts, args.gen, max_len)
+    extras = draw_extras(cfg, rng, args.batch, device)
+    served = serve_loop(cfg, model, prompts, args.gen, max_len, extras)
 
     gen = served.tokens
     tput = args.batch * args.gen / served.decode_s
@@ -158,7 +194,7 @@ def main(argv=None) -> LMRun | None:
           f"gen={args.gen}")
     print(f"prefill {served.prefill_s*1e3:.0f}ms; decode {served.decode_s*1e3:.0f}ms "
           f"({tput:.1f} tok/s); sample: {gen[0, :8].tolist()}")
-    return LMRun(cfg, model, prompts, served)
+    return LMRun(cfg, model, prompts, extras, max_len, served)
 
 
 if __name__ == "__main__":

@@ -396,3 +396,33 @@ def attn_decode(p, x, cfg, cache_k, cache_v, pos: int, *, window=0):
     o = w.float() @ vt.float().transpose(1, 2)  # (B, H, 1, hd)
     o = o.transpose(1, 2).reshape(b, 1, h * hd).to(x.dtype)
     return o @ p.wo, cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# cross-attention over an encoder's output (whisper's decoder)
+# --------------------------------------------------------------------------
+def cross_attn_apply(p, x, cfg, k, v):
+    """Full-sequence cross-attention (train / prefill) over an encoder's
+    (B, S_enc, K, hd) keys and values (``attn_qkv(p, enc_out, cfg, None,
+    with_rope=False)``): every query over every frame, no rope."""
+    b, s, _ = x.shape
+    q = attn_qkv(p, x, cfg, None, with_rope=False)[0]
+    o = chunked_attention(q, k, v, causal=False)
+    return o.reshape(b, s, cfg.n_heads * cfg.d_head) @ p.wo
+
+
+def cross_attn_decode(p, x, cfg, k, v):
+    """Single-token cross-attention. x: (B, 1, d); k/v: (B, S_enc, K, hd),
+    written once by the prefill.  The reference's decode form: one f32
+    softmax over all frames (kv heads repeated to the query heads), its
+    weights cast to bf16 before the value product."""
+    b = x.shape[0]
+    h, hd = cfg.n_heads, cfg.d_head
+    q = attn_qkv(p, x, cfg, None, with_rope=False)[0]
+    rep = h // cfg.n_kv_heads
+    kt = torch.repeat_interleave(k, rep, dim=2)  # (B, S_enc, H, hd)
+    vt = torch.repeat_interleave(v, rep, dim=2)
+    s = (q.float() * _inv_sqrt(hd)).transpose(1, 2) @ kt.float().permute(0, 2, 3, 1)
+    w = torch.softmax(s, dim=-1).to(vt.dtype)  # (B, H, 1, S_enc)
+    o = w.float() @ vt.float().transpose(1, 2)  # (B, H, 1, hd)
+    return o.transpose(1, 2).reshape(b, 1, h * hd).to(x.dtype) @ p.wo

@@ -1,11 +1,11 @@
-"""Model assembly: the dense, MoE, hybrid and SSM decoder LMs behind the
-reference's API.
+"""Model assembly: decoder LMs, enc-dec (whisper), VLM (internvl) — every
+family of the reference behind its API.
 
   init_params(cfg, generator, device)       → LM (an nn.Module)
   param_tree(params)                        → its parameters as a nested tree
-  forward(cfg, params, tokens)              → (logits, aux)
+  forward(cfg, params, tokens, ...)         → (logits, aux)
   loss_fn(cfg, params, batch)               → (scalar, metrics)
-  prefill(cfg, params, tokens, max_len)     → (logits, cache)
+  prefill(cfg, params, tokens, max_len, ...) → (logits, cache)
   decode_step(cfg, params, cache, tok, pos) → (logits, cache)
 
 The reference (`repro.models.lm`) stacks each pattern slot's parameters
@@ -19,11 +19,16 @@ blocks.  A ragged pattern's padded tail slots are inactive blocks
 pair) for attention, a bf16 conv ring and an f32 recurrent state for
 the RG-LRU and SSD blocks.
 
-Ported: the dense family, the MoE family (``"attn"`` and ``"moe"``
-blocks, MLA, the leading dense layers, the sliding window), the hybrid
-(recurrentgemma: ``"rglru"`` blocks beside local MQA attention) and the
-SSM (mamba2: ``"ssd"`` blocks, which have no MLP).  The other families
-raise `NotImplementedError` at construction (`ROADMAP.md` § 1 item 10).
+The families: dense; MoE (``"attn"`` and ``"moe"`` blocks, MLA, the
+leading dense layers, the sliding window); the hybrid (recurrentgemma:
+``"rglru"`` blocks beside local MQA attention); the SSM (mamba2:
+``"ssd"`` blocks, which have no MLP); the encoder-decoder (whisper: an
+`Encoder` of non-causal attention blocks over precomputed frame
+embeddings, ``enc_frames``, and after each decoder block a
+`CrossAttention` over its output, whose K/V the prefill writes into each
+layer's cache once); and the VLM (internvl: precomputed image
+embeddings, ``img_embeds``, prepended to the text, positions running
+over both, the image positions stripped from the forward's output).
 """
 from __future__ import annotations
 
@@ -40,6 +45,9 @@ from repro_torch.models.layers import (
     RMSNorm,
     attn_apply,
     attn_decode,
+    attn_qkv,
+    cross_attn_apply,
+    cross_attn_decode,
     dense_init,
     embed,
     mlp,
@@ -47,24 +55,6 @@ from repro_torch.models.layers import (
     remat,
     rmsnorm,
 )
-
-
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-PORTED_KINDS = ("attn", "moe", "rglru", "ssd")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of a ported family and every block kind of
-    it is ported."""
-    missing = []
-    if cfg.family not in PORTED_FAMILIES:
-        missing.append(f"family {cfg.family!r}")
-    missing += [f"block kind {k!r}" for k in sorted(set(cfg.block_pattern) - set(PORTED_KINDS))]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; only the dense, MoE, "
-            "hybrid and SSM families are (ROADMAP.md § 1 item 10 orders the rest)"
-        )
 
 
 # --------------------------------------------------------------------------
@@ -77,11 +67,14 @@ class Block(nn.Module):
     kind ``"moe"``, else a plain MLP of width ``d_ff``.  An ``"ssd"``
     block has no ``norm2`` and no ffn (mamba2's block is its mixer).
     ``active`` False is a padded tail slot of a ragged pattern (the
-    reference's inactive-tail gate)."""
+    reference's inactive-tail gate).  Another kind raises `ValueError`,
+    as the reference's ``_mix_init`` does."""
 
     def __init__(self, cfg: ModelConfig, kind: str, active: bool, generator=None, *,
                  device=None):
         super().__init__()
+        if kind not in ("attn", "moe", "rglru", "ssd"):
+            raise ValueError(kind)
         d = cfg.d_model
         self.kind = kind
         self.active = active
@@ -148,14 +141,40 @@ def _units(cfg: ModelConfig):
     return period, n_units, active
 
 
-class LM(nn.Module):
-    """Embedding, the blocks in layer order (after the ``lead`` layers),
-    the final norm and (untied) the ``(d, vocab)`` head.  ``generator``
-    None leaves the weights uninitialised for the carry to fill."""
+class Encoder(nn.Module):
+    """whisper's encoder: ``n_enc_layers`` attention blocks (non-causal,
+    with rope), a final ``norm`` and learned positions ``pos``
+    (enc_positions, d) added to the frames."""
 
     def __init__(self, cfg: ModelConfig, generator=None, *, device=None):
         super().__init__()
-        check_ported(cfg)
+        d = cfg.d_model
+        self.layers = nn.ModuleList(Block(cfg, "attn", True, generator, device=device)
+                                    for _ in range(cfg.n_enc_layers))
+        self.norm = RMSNorm(d, cfg.norm_eps, device=device)
+        self.pos = nn.Parameter(dense_init(generator, (cfg.enc_positions, d), device=device),
+                                requires_grad=False)
+
+
+class CrossAttention(nn.Module):
+    """A decoder layer's cross-attention: ``x + attn(norm(x))`` over the
+    encoder's output, GQA attention without rope."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, *, device=None):
+        super().__init__()
+        self.norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.attn = Attention(cfg, generator, device=device)
+
+
+class LM(nn.Module):
+    """Embedding, the blocks in layer order (after the ``lead`` layers),
+    the final norm and (untied) the ``(d, vocab)`` head; for the
+    encoder-decoder also the `Encoder` and one `CrossAttention` a decoder
+    layer (``cross``).  ``generator`` None leaves the weights
+    uninitialised for the carry to fill."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, *, device=None):
+        super().__init__()
         self.cfg = cfg
         d = cfg.d_model
         period, n_units, active = _units(cfg)
@@ -168,14 +187,20 @@ class LM(nn.Module):
             Block(cfg, kind, active[u][j], generator, device=device)
             for u in range(n_units) for j, kind in enumerate(cfg.block_pattern)
         )
-        # deepseek: leading dense layers (attention + plain MLP); no
-        # submodule elsewhere, so that a dense model's tree is unchanged
+        # deepseek: leading dense layers (attention + plain MLP); whisper:
+        # the encoder and the cross-attentions.  No submodule elsewhere, so
+        # that the other families' trees are unchanged
         self.lead = nn.ModuleList(
             Block(cfg, "attn", True, generator, device=device)
             for _ in range(cfg.first_dense_layers)) if cfg.first_dense_layers else ()
+        self.encoder, self.cross = None, ()
+        if cfg.family == "encdec":
+            self.encoder = Encoder(cfg, generator, device=device)
+            self.cross = nn.ModuleList(CrossAttention(cfg, generator, device=device)
+                                       for _ in range(cfg.n_layers))
 
-    def forward(self, tokens):
-        return forward(self.cfg, self, tokens)[0]
+    def forward(self, tokens, img_embeds=None, enc_frames=None):
+        return forward(self.cfg, self, tokens, img_embeds=img_embeds, enc_frames=enc_frames)[0]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> LM:
@@ -209,37 +234,75 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
-def _unit(cfg, blocks, positions, x, lb, zl):
-    for blk in blocks:
+def _unit(cfg, blocks, positions, x, lb, zl, crosses=(), enc_out=None):
+    """One pattern unit's blocks, each followed by its cross-attention
+    over ``enc_out`` where ``crosses`` has one (whisper's decoder)."""
+    for i, blk in enumerate(blocks):
         x, _, aux = _block_apply(blk, x, cfg, positions=positions)
         if aux is not None:
             lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
+        if crosses:
+            x = x + _cross_apply(crosses[i], x, cfg, *_cross_kv(crosses[i], enc_out, cfg))
     return x, lb, zl
 
 
-def forward_hidden(cfg: ModelConfig, params: LM, tokens, *, remat_units: bool = False):
-    """Final-norm hidden states (B, S, d) and the aux losses: the router's
-    ``lb_loss`` and ``z_loss`` summed over the blocks (zeros without
-    experts).  tokens: (B, S) integers.  ``remat_units`` checkpoints each
-    pattern unit: its backward recomputes the unit's internals and only
-    the bf16 carries are saved across layers (the reference's module
-    flag ``REMAT_UNITS``, held per call here; the leading dense layers
-    run outside the scan there, and unchecked here)."""
-    pin_f32_accumulation()
-    x = embed(params.embed, tokens).to(DTYPE)
+def _cross_kv(xp: CrossAttention, enc_out, cfg):
+    """The encoder output's (B, S_enc, K, hd) keys and values, no rope."""
+    return attn_qkv(xp.attn, enc_out, cfg, None, with_rope=False)[1:]
+
+
+def _cross_apply(xp: CrossAttention, x, cfg, k, v):
+    return cross_attn_apply(xp.attn, rmsnorm(xp.norm, x, cfg.norm_eps), cfg, k, v)
+
+
+def _encode(cfg, params: LM, frames):
+    """The encoder over (B, S, d) frame embeddings: bf16 frames plus
+    ``pos[:S]``, the non-causal attention blocks, then ``norm``."""
+    enc = params.encoder
+    x = frames.to(DTYPE) + enc.pos[None, :frames.shape[1]]
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
+    for blk in enc.layers:
+        x, *_ = _block_apply(blk, x, cfg, causal=False, positions=positions)
+    return rmsnorm(enc.norm, x, cfg.norm_eps)
+
+
+def _embed(cfg, params: LM, tokens, img_embeds):
+    """The tokens' bf16 embeddings, after the image embeddings (the VLM)."""
+    x = embed(params.embed, tokens).to(DTYPE)
+    if cfg.family == "vlm" and img_embeds is not None:
+        x = torch.cat([img_embeds.to(DTYPE), x], dim=1)
+    return x
+
+
+def forward_hidden(cfg: ModelConfig, params: LM, tokens, *, img_embeds=None,
+                   enc_frames=None, remat_units: bool = False):
+    """Final-norm hidden states (B, S, d) for the token positions, and the
+    aux losses: the router's ``lb_loss`` and ``z_loss`` summed over the
+    blocks (zeros without experts).  tokens: (B, S) integers.  VLM:
+    ``img_embeds`` (B, n_img, d) prepended (their positions are stripped
+    from the output).  enc-dec: ``enc_frames`` (B, S_enc, d) precomputed
+    frame embeddings (the conv frontend is a stub).  ``remat_units``
+    checkpoints each pattern unit: its backward recomputes the unit's
+    internals and only the bf16 carries are saved across layers (the
+    reference's module flag ``REMAT_UNITS``, held per call here; the
+    leading dense layers run outside the scan there, and unchecked here)."""
+    pin_f32_accumulation()
+    x = _embed(cfg, params, tokens, img_embeds)
+    b, s, _ = x.shape
+    positions = _positions(b, s, x.device)
+    enc_out = _encode(cfg, params, enc_frames) if cfg.family == "encdec" else None
     for blk in params.lead:
         x, *_ = _block_apply(blk, x, cfg, positions=positions)
     lb = zl = torch.zeros((), dtype=torch.float32, device=x.device)
     period = len(cfg.block_pattern)
     for u in range(0, len(params.blocks), period):
-        blocks = params.blocks[u:u + period]
-        if remat_units:
-            x, lb, zl = remat(_unit, cfg, blocks, positions, x, lb, zl)
-        else:
-            x, lb, zl = _unit(cfg, blocks, positions, x, lb, zl)
+        args = (cfg, params.blocks[u:u + period], positions, x, lb, zl,
+                params.cross[u:u + period], enc_out)
+        x, lb, zl = remat(_unit, *args) if remat_units else _unit(*args)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    if cfg.family == "vlm" and img_embeds is not None:
+        x = x[:, img_embeds.shape[1]:]
     return x, {"lb_loss": lb, "z_loss": zl}
 
 
@@ -252,9 +315,9 @@ def _logits(cfg, params: LM, x):
     return x @ _head_table(cfg, params)
 
 
-def forward(cfg: ModelConfig, params: LM, tokens):
+def forward(cfg: ModelConfig, params: LM, tokens, *, img_embeds=None, enc_frames=None):
     """Full-sequence token logits (test/serve path — materializes logits)."""
-    x, aux = forward_hidden(cfg, params, tokens)
+    x, aux = forward_hidden(cfg, params, tokens, img_embeds=img_embeds, enc_frames=enc_frames)
     return _logits(cfg, params, x), aux
 
 
@@ -302,13 +365,15 @@ def chunked_ce(h, head, targets, weights=None, chunk=CE_CHUNK):
 
 
 def loss_fn(cfg: ModelConfig, params: LM, batch, *, remat_units: bool = False):
-    """batch: {tokens, targets, loss_weights?} tensors → (loss, metrics).
+    """batch: {tokens, targets, loss_weights?, img_embeds?, enc_frames?}
+    tensors → (loss, metrics).
 
     loss_weights (B,) are the PS³ data-plane partition weights (§2.4
     estimator applied to the training objective: weighted per-sequence
     CE).  ``remat_units`` checkpoints each unit (`forward_hidden`).
     """
-    h, aux = forward_hidden(cfg, params, batch["tokens"], remat_units=remat_units)
+    h, aux = forward_hidden(cfg, params, batch["tokens"], img_embeds=batch.get("img_embeds"),
+                            enc_frames=batch.get("enc_frames"), remat_units=remat_units)
     loss, zl = chunked_ce(h, _head_table(cfg, params), batch["targets"],
                           batch.get("loss_weights"))
     total = loss + cfg.router_aux_coef * aux["lb_loss"] + 1e-4 * (aux["z_loss"] + zl)
@@ -358,9 +423,21 @@ def _kinds(cfg) -> list[str]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list[dict]:
     """One cache per layer, in layer order (the leading dense layers'
-    first): `_layer_cache`."""
-    check_ported(cfg)
-    return [_layer_cache(cfg, kind, batch, max_len, device) for kind in _kinds(cfg)]
+    first): `_layer_cache`; a decoder layer of the encoder-decoder also
+    holds its cross-attention's ``cross_k``/``cross_v`` (B, enc_positions,
+    K, hd), zeros until the prefill writes the encoder's."""
+    caches = [_layer_cache(cfg, kind, batch, max_len, device) for kind in _kinds(cfg)]
+    if cfg.family == "encdec":
+        shape = (batch, cfg.enc_positions, cfg.n_kv_heads, cfg.d_head)
+        for c in caches:
+            c["cross_k"], c["cross_v"] = (torch.zeros(shape, dtype=DTYPE, device=device)
+                                          for _ in range(2))
+    return caches
+
+
+def _crosses(params: LM) -> list:
+    """Each layer's `CrossAttention` (whisper's decoder), None elsewhere."""
+    return list(params.cross) or [None] * len(_layers(params))
 
 
 def _mix_decode(p: Block, h, cfg, c: dict, pos: int):
@@ -384,35 +461,49 @@ def decode_step(cfg: ModelConfig, params: LM, cache: list[dict], tokens, pos: in
     into ``cache`` in place; returns (logits (B, 1, V), cache).  An
     inactive tail slot runs and writes its cache, its output gated by 0,
     as in the reference.  An MoE block routes the B tokens of the step
-    (its capacity is that of B tokens).
+    (its capacity is that of B tokens).  A decoder layer with a
+    cross-attention runs it after the MLP, over the cache's
+    ``cross_k``/``cross_v``.  ``pos`` counts a VLM's image positions.
     """
     pin_f32_accumulation()
     x = embed(params.embed, tokens).to(DTYPE)
-    for blk, c in zip(_layers(params), cache):
+    for blk, xp, c in zip(_layers(params), _crosses(params), cache):
         out = _mix_decode(blk, rmsnorm(blk.norm1, x, cfg.norm_eps), cfg, c, pos)
         x = _gated(x, out, blk.active)
         if blk.kind != "ssd":
             x = _gated(x, _ffn(blk, rmsnorm(blk.norm2, x, cfg.norm_eps), cfg)[0], blk.active)
+        if xp is not None:
+            h = rmsnorm(xp.norm, x, cfg.norm_eps)
+            x = x + cross_attn_decode(xp.attn, h, cfg, c["cross_k"], c["cross_v"])
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return _logits(cfg, params, x), cache
 
 
-def prefill(cfg: ModelConfig, params: LM, tokens, max_len: int):
+def prefill(cfg: ModelConfig, params: LM, tokens, max_len: int, *, img_embeds=None,
+            enc_frames=None):
     """Process a prompt, building the decode cache.  Returns (logits, cache)
-    with the logits of every prompt position.  Inactive tail slots are
-    skipped and keep a zero cache (the reference's)."""
+    with the logits of every prompt position (a VLM's image positions
+    first: its cache holds them too).  Inactive tail slots are skipped and
+    keep a zero cache (the reference's).  The encoder-decoder encodes
+    ``enc_frames`` once and writes each decoder layer's cross K/V."""
     pin_f32_accumulation()
-    b, s = tokens.shape[0], tokens.shape[1]
-    x = embed(params.embed, tokens).to(DTYPE)
+    x = _embed(cfg, params, tokens, img_embeds)
+    b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     cache = init_cache(cfg, b, max_len, x.device)
-    for blk, c in zip(_layers(params), cache):
+    if cfg.family == "encdec":
+        enc_out = _encode(cfg, params, enc_frames)
+        for xp, c in zip(params.cross, cache):
+            c["cross_k"], c["cross_v"] = _cross_kv(xp, enc_out, cfg)
+    for blk, xp, c in zip(_layers(params), _crosses(params), cache):
         if not blk.active:
             continue
         out, st = _mix_apply(blk, rmsnorm(blk.norm1, x, cfg.norm_eps), cfg, positions=positions)
         x = x + out
         if blk.kind != "ssd":
             x = x + _ffn(blk, rmsnorm(blk.norm2, x, cfg.norm_eps), cfg)[0]
+        if xp is not None:
+            x = x + _cross_apply(xp, x, cfg, c["cross_k"], c["cross_v"])
         _store_cache(cfg, blk.kind, c, st)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return _logits(cfg, params, x), cache

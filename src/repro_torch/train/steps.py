@@ -88,10 +88,12 @@ def make_serve_step(cfg: ModelConfig):
 
 def make_prefill_step(cfg: ModelConfig):
     """prefill_step(params, batch) → the next-token logits (B, V) of
-    ``batch["tokens"]``."""
+    ``batch["tokens"]`` (after ``batch["img_embeds"]``, over
+    ``batch["enc_frames"]``, where the family takes them)."""
 
     def prefill_step(params, batch):
-        logits, _ = lm.forward(cfg, params, batch["tokens"])
+        logits, _ = lm.forward(cfg, params, batch["tokens"], img_embeds=batch.get("img_embeds"),
+                               enc_frames=batch.get("enc_frames"))
         return logits[:, -1]
 
     return prefill_step

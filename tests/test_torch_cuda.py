@@ -19,7 +19,8 @@ host fit's forest bit for bit.  A stream of appends folded on the card
 equals a cold rebuild of the grown table bit for bit.  A qwen-smoke train
 step on the card agrees with the CPU (the loss, every gradient and two
 steps' losses, at the CPU parity tests' tolerances), and so do the MoE,
-hybrid and SSM smoke models' prefill and decode steps.
+hybrid, SSM, encoder-decoder and VLM smoke models' prefill and decode
+steps.
 """
 import numpy as np
 import pytest
@@ -1088,5 +1089,50 @@ def test_recurrent_smoke_card_matches_cpu(cuda, arch):
     pairs += [(g[k], w[k]) for g, w in zip(caches["card"], caches["cpu"]) for k in w]
     for got, want in pairs:
         np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+        if want.any():
+            assert np.corrcoef(want.ravel().numpy(), got.ravel().numpy())[0, 1] > 0.999
+
+
+@pytest.mark.parametrize("arch", ["whisper_small", "internvl2_26b"])
+def test_encdec_vlm_smoke_card_matches_cpu(cuda, arch):
+    """whisper-smoke (the encoder, cross-attention over its frames) and
+    internvl-smoke (an image prefix) on the card against the CPU, from the
+    same weights and extras (`serve.draw_extras`): a prefill of 2 × 12
+    tokens and 3 decode steps fed the CPU's greedy tokens, the logits at
+    ``rtol=5e-2, atol=5e-2`` with a correlation above 0.999
+    (`tests/test_arch_smoke.py`), and every layer's cache after the last
+    step (whisper's ``cross_k``/``cross_v`` beside K/V) at the same rule."""
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_smoke(arch)
+    models = {"cpu": lm.init_params(cfg, torch.Generator().manual_seed(0))}
+    models["card"] = copy.deepcopy(models["cpu"]).to(cuda)
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 12)))
+    extras = serve.draw_extras(cfg, rng, 2, "cpu")
+    pos0 = serve.prefix_len(cfg) + 12
+    outs, caches, fed = {}, {}, []
+    for where in ("cpu", "card"):
+        dev = cuda if where == "card" else torch.device("cpu")
+        with torch.inference_mode():
+            logits, cache = lm.prefill(cfg, models[where], tokens.to(dev), pos0 + 3,
+                                       **{k: v.to(dev) for k, v in extras.items()})
+            seen = [logits]
+            for i in range(3):
+                if where == "cpu":
+                    fed.append(torch.argmax(seen[-1][:, -1:], dim=-1))
+                step, cache = lm.decode_step(cfg, models[where], cache, fed[i].to(dev), pos0 + i)
+                seen.append(step)
+        outs[where] = [x.float().cpu() for x in seen]
+        caches[where] = [{k: v.float().cpu() for k, v in c.items()} for c in cache]
+    pairs = list(zip(outs["card"], outs["cpu"]))
+    pairs += [(g[k], w[k]) for g, w in zip(caches["card"], caches["cpu"]) for k in w]
+    assert all("cross_k" in c for c in caches["cpu"]) == (cfg.family == "encdec")
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=5e-2, atol=5e-2)
         if want.any():
             assert np.corrcoef(want.ravel().numpy(), got.ravel().numpy())[0, 1] > 0.999

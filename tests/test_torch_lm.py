@@ -30,9 +30,9 @@ Held across the two packages, on the CPU:
     B·S tokens and a decode step B, and their capacities differ).
 
 The prefill caches (K/V, MLA's pair, the recurrent blocks' conv rings
-and f32 states, a ragged tail's zeros) carry bit for bit.  Every other
-family (encoder-decoder, VLM) raises `NotImplementedError` naming the
-roadmap item.
+and f32 states, a ragged tail's zeros) carry bit for bit.  A block kind
+that no family has raises `ValueError`, as the reference's does.  The
+encoder-decoder and VLM families are held in `test_torch_encdec_vlm.py`.
 """
 import dataclasses
 from functools import partial
@@ -56,8 +56,6 @@ from test_torch_moe import PortRouting, ReferenceRouting, flipped_tokens
 DENSE = ("qwen1_5_0_5b", "yi_6b", "llama3_405b")
 MOE = ("mixtral_8x22b", "deepseek_v2_236b")
 RECURRENT = ("recurrentgemma_9b", "mamba2_130m")
-UNPORTED = tuple(a for a in configs.all_archs()
-                 if ref_configs.get_smoke(a).family not in lm.PORTED_FAMILIES)
 TOL = dict(rtol=5e-2, atol=5e-2)  # `tests/test_arch_smoke.py::test_decode_matches_forward`
 HYBRID_TOL = dict(rtol=5e-2, atol=0.15)  # the same test's atol for the hybrid family
 BF16_STEP = 2.0 ** -7  # one bf16 step relative to the value (8 significant bits)
@@ -111,13 +109,16 @@ def test_registry_matches_reference():
         assert configs.get_config(public).name == ref_configs.get_config(public).name
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = configs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md § 1 item 10"):
+def test_unknown_block_kind_raises():
+    """The reference's ``_mix_init`` raises `ValueError` on a kind it does
+    not know; so does the port's `Block`, before drawing any weight."""
+    cfg = dataclasses.replace(configs.get_smoke("qwen1_5_0_5b"), block_pattern=("attn", "mlp"))
+    ref_cfg = dataclasses.replace(ref_configs.get_smoke("qwen1_5_0_5b"),
+                                  block_pattern=("attn", "mlp"))
+    with pytest.raises(ValueError, match="mlp"):
+        ref_lm.init_params(ref_cfg, jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="mlp"):
         lm.LM(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md § 1 item 10"):
-        lm.init_cache(cfg, 1, 8, "cpu")
 
 
 # --------------------------------------------------------------------------
