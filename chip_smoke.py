@@ -8,7 +8,7 @@ Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all at once);
+   source, all at once, while the table is drawn);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the main path hands it: counts, histograms, bincounts, GBDT
    histograms and their prefix sums bit-equal, f32 sums and distances
@@ -101,7 +101,10 @@ Phases, each fatal on failure:
    ``EvalCache``'s; ``[wal]`` a delete that crashes at ``wal.apply``,
    ``wal.recover`` of the directory against ``replay`` on the live table
    (tables, sketches, answers and executes equal);
-11. the LM substrate's serving path and ``launch/serve.py --aqp``:
+11. (phases 11 and 12 run in a second process on the same card, started
+   after phase 3 and beside phases 4 to 10, its output printed after
+   phase 10; each process counts its own launches) the LM substrate's
+   serving path and ``launch/serve.py --aqp``:
    ``[lm]`` `repro_torch.launch.serve.main` at full width on the card for
    qwen1.5-0.5b (the serve default: MHA, a tied head), yi-6b (GQA, an
    untied head), recurrentgemma-9b at full depth (RG-LRU blocks beside
@@ -142,7 +145,25 @@ Phases, each fatal on failure:
    the first 2 layers of the trained model at batch 1, card against CPU:
    `lm.loss_fn` and every gradient at the CPU tests' tolerances, (c) the
    card's plane picks the shards and weights of ``PS3DataPlane(...,
-   backend="host")`` on the CPU;
+   backend="host")`` on the CPU; then ``[check] dist``, the multi-device
+   layer on a one-rank NCCL group (the machine has one card):
+   `distributed.compress.compressed_pod_mean` on the trained model's
+   gradients bit-equal to its plain form with one pod and within the
+   int8 bound, ``step_3`` restored onto a (1, 1) CUDA ``DeviceMesh``
+   through `distributed.sharding.param_shardings` bit-equal to the plain
+   restore, and a step with ``compress_pod_grads`` bit-equal to one
+   without; then every other family: mamba2-130m whole through
+   ``launch/train.main`` (4 steps, checkpoints every 2, (a) a resume from
+   step 2), and `train.steps.make_train_step` on a ``PS3DataPlane``'s
+   batches at full width for recurrentgemma-9b on one pattern unit (3
+   layers), mixtral-8x22b on 1 layer and deepseek-v2-236b on its lead
+   and one MoE layer (int8 states), whisper-small whole (with frame
+   embeddings) and internvl2-26b on 2 layers (with image embeddings):
+   each arch's ``[train]`` line (layers, state dtype, parameter and state
+   bytes, step times, tokens/s, first and last loss, peak memory), every
+   loss finite, and (b) card against CPU at batch 1 (32 tokens for the
+   MoE and internvl cuts), MoE routing compared token by token, the
+   recurrent families in f32 where bf16 misses;
 13. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
    Each kernel's ``session_launches``, ``plane_launches``,
    ``stream_launches``, ``serve_launches``, ``lifecycle_launches``,
@@ -150,10 +171,12 @@ Phases, each fatal on failure:
    Session, plane, streaming, serving, lifecycle, ``--aqp`` and training
    paths, and ``launches`` is their sum.  The LM model launches no
    hand-written kernel (its reference has no Pallas kernel); the training
-   path's launches are its PS³ plane's.
+   path's launches are its PS³ planes' (every arch's run).
 
-A ``[time] phase N <name> <s>`` line follows every phase; ``[reduced]``
-lines list what was cut to keep the run inside its time limit.
+A ``[time] phase N <name> <s>`` line follows every phase (phases 11 and
+12 on their own process's clock, then ``[time] phase 11-12 wait`` on the
+first's); ``[reduced]`` lines list what was cut to keep the run inside
+its time limit.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -165,9 +188,12 @@ import contextlib
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -198,6 +224,7 @@ APPENDS = 3  # timed appends of the streaming phase, after the warm-up one
 ROUNDS = 5  # timed rounds of every kernel case; the median is recorded
 PLANE_SHARDS = 3  # logical shards of phase 7: 1024 slots would never pad on 2 or 4
 SERVE_QUERIES = 8  # held-out queries of phase 9's FrontDoor (see CUTS)
+LIFECYCLE_QUERIES = 8  # held-out queries of phase 10 after the delete and in [wal] (see CUTS)
 # depth cut so that the run stays inside its time limit (no check dropped)
 CUTS = (
     "phase 9 [faults]: the faulted route shares the Session's sketch store instead of "
@@ -211,6 +238,20 @@ CUTS = (
     f"tenants over the first {SERVE_QUERIES} held-out queries (2 passes over 16 before), each "
     f"fault-free answer held to one direct execute of its query (one a ticket before), to "
     f"make room for phase 11's whisper-small and internvl2-26b",
+    "phase 9 [serve]: the dead route shares the Session's sketch store too, as [faults]' "
+    "route does, instead of building its own Session(table) (whose ingest launches were the "
+    "serving path's only moments, histogram_range and bincount launches), to make room for "
+    "phase 12's training of every family",
+    f"phase 10 [lifecycle] and [wal]: the executes after the compaction, the rebalance and "
+    f"the append, the cold oracle's planner answers and the recovered Session's answers and "
+    f"executes on the first {LIFECYCLE_QUERIES} held-out queries (16 before; the delete's "
+    f"coverage gate keeps all 16), to make room for phase 12's training of every family",
+    "phase 12 [train]: at full width, recurrentgemma-9b on 3 of 38 layers (one pattern "
+    "unit), mixtral-8x22b on 1 of 56, deepseek-v2-236b on 2 of 60 (its dense lead and one MoE "
+    "layer) and internvl2-26b on 2 of 48 (their whole models do not fit one card with "
+    "gradients and AdamW state); whisper-small and mamba2-130m whole; 3 steps each (mamba2: 4)",
+    "phase 12 [check] train (b): batch 1 x 32 tokens for the mixtral-8x22b, deepseek-v2-236b "
+    "and internvl2-26b cuts, to keep their CPU side short (128 tokens for the others)",
 )
 
 
@@ -229,6 +270,11 @@ def parse_args(argv=None):
     ap.add_argument("--held-out", type=int, default=16)
     ap.add_argument("--offline-partitions", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    # the second process of phases 11 and 12 (see LMPhases): its result
+    # file, the card line phase 1 printed and the first process's pid
+    ap.add_argument("--lm-phases", metavar="RESULT_JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--card", help=argparse.SUPPRESS)
+    ap.add_argument("--parent", type=int, help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
@@ -1704,8 +1750,7 @@ def stream_path(sess, train_queries, held_out, args) -> tuple[dict, frozenset]:
 # --------------------------------------------------------------------------
 # phase 9: the serving path on the prepared Session
 # --------------------------------------------------------------------------
-SERVE_KERNELS = ("fused_eval", "pdist_sq", "tree_hist", "cumsum_seq", "moments",
-                 "histogram_range", "bincount")
+SERVE_KERNELS = ("fused_eval", "pdist_sq", "tree_hist", "cumsum_seq")
 # the reference's coverage-gate policy (`tests/test_faults.py`): 5% of read
 # attempts fail transiently, 2% time out, 5% straggle, 1.25% of partitions
 # lose every replica
@@ -1858,8 +1903,6 @@ def serve_phase(sess, held_out, fresh) -> None:
     """`[serve]`: a FrontDoor on a VirtualClock over a dead route and the
     card Session, then the real-clock pump thread on ``fresh`` queries
     (no cached answer: their chunk reads launch the eval kernels)."""
-    import threading
-
     import numpy as np
     import torch
 
@@ -1883,7 +1926,8 @@ def serve_phase(sess, held_out, fresh) -> None:
     beta = float(np.median(np.asarray(walls) / np.asarray(parts)))
     alpha = max(1e-4, 0.25 * float(np.min(walls)))
     dead = grafted_session(sess, sess.options.replace(
-        faults=FaultPolicy(seed=GATE["seed"], dead_frac=1.0, max_attempts=1)))
+        faults=FaultPolicy(seed=GATE["seed"], dead_frac=1.0, max_attempts=1)),
+        share_sketches=True)
     clk = VirtualClock()
     door = FrontDoor(sess, routes=[("faulty", dead), ("card", sess)], clock=clk,
                      service_model=lambda p: alpha + beta * p,
@@ -2199,6 +2243,7 @@ def lifecycle_ops(sess, log, held_out, known, args) -> list:
     planned, new_keys = None, set()
     known = set(known) | set(device.TRACES.counts())
     for name, op in ops:
+        queries = held_out if name == "delete" else held_out[:LIFECYCLE_QUERIES]
         keys = frozenset(device.TRACES.counts())
         p0 = table.num_partitions
         t = time.perf_counter()
@@ -2215,7 +2260,7 @@ def lifecycle_ops(sess, log, held_out, known, args) -> list:
 
         sess.planner._read = record
         try:
-            planned, walls = run_executes(sess, held_out)
+            planned, walls = run_executes(sess, queries)
         finally:
             del sess.planner._read
         new_keys |= frozenset(device.TRACES.counts()) - keys
@@ -2226,10 +2271,10 @@ def lifecycle_ops(sess, log, held_out, known, args) -> list:
             live = table.live_mask()
             truth_table = Table(table.schema, {k: v[live] for k, v in table.columns.items()},
                                 name=f"{table.name}/live")
-            truth = per_partition_answers_batch(truth_table, held_out, options=sess.options)
+            truth = per_partition_answers_batch(truth_table, queries, options=sess.options)
             what = f"against the exact answers over the {truth_table.num_partitions} live"
         else:
-            truth = sess.answers.get_batch(held_out)
+            truth = sess.answers.get_batch(queries)
             what = f"against the exact answers over all {table.num_partitions}"
         torch.cuda.synchronize()
         cov, mean_err = coverage_of(planned, truth)
@@ -2241,7 +2286,7 @@ def lifecycle_ops(sess, log, held_out, known, args) -> list:
         print(f"[lifecycle] {name} through the WAL: {p0} -> {table.num_partitions} partitions "
               f"({table.num_live} live) in {t_op:.3f} s; fold: sketches {t_sk:.3f} s, eval "
               f"cache {t_cache:.3f} s{rewrite}, answers and views {t_ans:.3f} s; "
-              f"{len(held_out)} executes p50 {np.median(walls):.3f} s, partitions read mean "
+              f"{len(queries)} executes p50 {np.median(walls):.3f} s, partitions read mean "
               f"{read_n.mean():.1f}; coverage {cov:.4f}, mean avg_rel_err {mean_err:.4f} {what} "
               f"partitions", flush=True)
     if new_keys - known:
@@ -2401,8 +2446,8 @@ def lifecycle_path(sess, held_out, stream_keys, args) -> dict:
         before = dict(full=sess.sketches.full_rebuilds, rewrites=cache.stack_rewrites,
                       rebuilds=cache.stack_rebuilds, bucket=cache.device_stack().shape[1])
         planned = lifecycle_ops(sess, log, held_out, stream_keys, args)
-        lifecycle_checks(sess, planned, held_out, before, args)
-        wal_checks(sess, log, root, held_out, args)
+        lifecycle_checks(sess, planned, held_out[:LIFECYCLE_QUERIES], before, args)
+        wal_checks(sess, log, root, held_out[:LIFECYCLE_QUERIES], args)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.synchronize()
@@ -3047,8 +3092,8 @@ def train_probe(rec: dict):
     """Times the parts of `launch/train.main` without changing them: the
     token store, the plane (kept, with its first selection), each train
     step (the device synchronised), each checkpoint save (the call: the
-    host copy, and each write with its bytes), the watchdog's verdicts and
-    the model (`lm.init_params`)."""
+    host copy, and each write with its bytes), each restore's tree (kept),
+    the watchdog's verdicts and the model (`lm.init_params`)."""
     from unittest import mock
 
     import torch
@@ -3101,10 +3146,16 @@ def train_probe(rec: dict):
         rec["models"].append(model)
         return model
 
+    def restore(self, *a, **kw):
+        tree = restore_fn(self, *a, **kw)
+        rec["restores"].append(tree)
+        return tree
+
     make_step, write_fn = train.steps_mod.make_train_step, checkpoint.Checkpointer._write
     observe_fn, init_fn = train.StepWatchdog.observe, lm.init_params
-    plane_cls = train.PS3DataPlane
-    for k in ("plane_s", "planes", "step_s", "saves", "writes", "fired", "models", "store_s"):
+    plane_cls, restore_fn = train.PS3DataPlane, checkpoint.Checkpointer.restore
+    for k in ("plane_s", "planes", "step_s", "saves", "writes", "fired", "models", "store_s",
+              "restores"):
         rec.setdefault(k, [])
     with mock.patch.object(train, "PS3DataPlane", plane), \
             mock.patch.object(train, "make_token_store",
@@ -3114,7 +3165,8 @@ def train_probe(rec: dict):
                               timed(checkpoint.Checkpointer.save, rec["saves"])), \
             mock.patch.object(checkpoint.Checkpointer, "_write", write), \
             mock.patch.object(train.StepWatchdog, "observe", observe), \
-            mock.patch.object(lm, "init_params", init_params):
+            mock.patch.object(lm, "init_params", init_params), \
+            mock.patch.object(checkpoint.Checkpointer, "restore", restore):
         yield rec
 
 
@@ -3223,7 +3275,9 @@ def train_card_vs_cpu(model, plane) -> str:
 def train_path(card: str) -> dict:
     """Phase 12: `launch/train.main` at full width on the card, checked
     (a) by a resumed run, (b) on the first layers against the CPU, (c) its
-    plane against the host backend's on the CPU → the run's launches."""
+    plane against the host backend's on the CPU; `dist_checks`; then
+    `resume_path` and `family_train` for each of ``FAMILY_TRAIN`` → the
+    launches of every arch's run."""
     import io
     import shutil
     import tempfile
@@ -3304,13 +3358,512 @@ def train_path(card: str) -> dict:
         check_b = (f"(b) the first {TRAIN_CUT} layers of the trained model, batch 1, card "
                    f"vs CPU: {train_card_vs_cpu(model, plane)}; "
                    f"{time.perf_counter() - t:.2f} s")
+        print(f"[check] train: {check_a}; {check_b}; {check_c}", flush=True)
+        t = time.perf_counter()
+        check_d = dist_checks(model, plane, resumed, TRAIN_RESUME, run_b["restores"][0])
+        print(f"[check] dist: {check_d}; {time.perf_counter() - t:.2f} s", flush=True)
+        del model, run_a, run_b, plane, host
+        torch.cuda.empty_cache()
+        totals = dict(launches)
+        for run in [lambda: resume_path(card, root)] + [
+                lambda arch=arch: family_train(arch, card) for arch in FAMILY_TRAIN]:
+            for k, n in run().items():
+                totals[k] = totals.get(k, 0) + n
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"[check] train: {check_a}; {check_b}; {check_c}", flush=True)
-    print(f"[train] the training phase took {time.perf_counter() - t_phase:.2f} s", flush=True)
-    del model, run_a, run_b
+    print(f"[train] the training phase took {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{json.dumps(totals, sort_keys=True)}", flush=True)
+    return totals
+
+
+# ... and every other family on the card: mamba2-130m whole through
+# `launch/train.main` (the reference's own resume arch: checkpoints every
+# 2 steps, a resume from step 2), then `make_train_step` on batches from a
+# `PS3DataPlane` for each arch below at full width: arch → (layers
+# trained, None whole; the AdamW state dtype).  The MoE cuts take int8
+# states (f32 states of deepseek's cut would be about 63 GB), whose
+# training diverges (ROADMAP.md § 3): they get no resume or descent
+# check.  recurrentgemma-9b's and internvl2-26b's cuts take bf16 states:
+# an update holds the old and the new moments (f32: 2 x 21.6 GB for the
+# hybrid's 2.7 B parameters, beside its 5.4 GB of weights and gradients)
+RESUME_ARCH = "mamba2-130m"
+RESUME_STEPS, RESUME_AT = 4, 2
+FAMILY_TRAIN = {
+    "recurrentgemma-9b": (3, "bfloat16"),  # one pattern unit: RG-LRU, RG-LRU, local MQA
+    "mixtral-8x22b": (1, "int8"),  # the window and the 8 experts
+    "deepseek-v2-236b": (2, "int8"),  # the dense lead layer and one MoE layer (MLA)
+    "whisper-small": (None, "float32"),  # 12 encoder and 12 decoder layers
+    "internvl2-26b": (2, "bfloat16"),  # the 256-position image prefix
+}
+FAMILY_STEPS = 3
+# (b)'s sequence for the cuts whose CPU side would be slow at 128 tokens
+FAMILY_CHECK_SEQ = {"mixtral-8x22b": 32, "deepseek-v2-236b": 32, "internvl2-26b": 32}
+TRAIN_LR = 3e-3  # launch/train.py's --lr, with its 10 warm-up steps
+DIST_REL_ERR = 0.02  # the reference's int8 bound on a leaf (tests/test_substrate.py)
+# (b) on the model cast to f32, the bf16 gap printed, where bf16 misses
+# (card against CPU, both bf16, on an H100): the recurrent families (as
+# phase 11's F32_CHECK; mamba2-130m's a_log gradients 1.41 apart in
+# relative L2, recurrentgemma-9b's wr 7.3e-2), and whisper-small whole,
+# whose 12 bf16 encoder layers over 1,500 frames leave the last one's wk
+# gradient 7.2e-2 apart; in f32 the two agree to 5e-4 or better
+TRAIN_F32_CHECK = F32_CHECK + ("encdec",)
+
+
+def train_grads(model, batch, force=None) -> tuple:
+    """`lm.loss_fn` on ``batch`` and every gradient (autograd) → (loss,
+    {lb_loss, z_loss}, {name: gradient}, the `moe_probe` routing records;
+    ``force``: take those expert ids)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    model.requires_grad_(True)
+    with moe_probe([], route=True, force=force) as calls:
+        loss, aux = lm.loss_fn(model.cfg, model, batch)
+    names, leaves = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, leaves)
+    return (float(loss.detach()), {k: float(aux[k].detach()) for k in ("lb_loss", "z_loss")},
+            dict(zip(names, grads)), calls)
+
+
+def grad_gap(got: dict, want: dict) -> tuple[str, float]:
+    """The worst leaf's relative L2 error of ``got`` against ``want``,
+    in f32 on ``got``'s device, leaf by leaf."""
+    import torch
+
+    rel = {}
+    for name, g in got.items():
+        w = want[name].to(g.device).float()
+        rel[name] = float(torch.linalg.vector_norm(g.float() - w)
+                          / torch.linalg.vector_norm(w).clamp_min(1e-30))
+        del w
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst]
+
+
+def family_card_vs_cpu(model, batch: dict, dev) -> str:
+    """(b) for a trained model: a copy on the CPU and the model on the
+    card, one batch of 1 (numpy tokens, bf16 extras): `lm.loss_fn`, its
+    router terms and every gradient at ``TRAIN_LOSS_RTOL`` and
+    ``TRAIN_GRAD_REL_L2``.  MoE routing is compared token by token: a
+    token routed apart must see router logits within ``LM_TOL`` (a near
+    tie), and the card then runs again on the CPU's routing, on which the
+    loss and gradients are compared (the router terms are not: a flip
+    moves the expert counts).  The recurrent families and whisper
+    (``TRAIN_F32_CHECK``) are compared on the model cast to f32, as phase
+    11's ``F32_CHECK`` does, with the bf16 gap printed: the card's bf16
+    loss and gradients against the CPU's f32 ones."""
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cfg = model.cfg
+    t = time.perf_counter()
+    host = cut_model(model, cfg.n_layers, "cpu")
+    t_copy = time.perf_counter() - t
+    data = {where: {**train.batch_tensors({k: batch[k] for k in ("tokens", "targets",
+                                                                  "loss_weights")}, d),
+                    **{k: v.to(d) for k, v in batch.items()
+                       if k in ("enc_frames", "img_embeds")}}
+            for where, d in (("cpu", "cpu"), ("card", dev))}
+    n_moe = sum(blk.kind == "moe" for blk in model.blocks)
+    f32 = cfg.family in TRAIN_F32_CHECK
+    gap = ""
+    with contextlib.ExitStack() as stack:
+        card = model
+        if f32:
+            stack.enter_context(mock.patch.object(lm, "DTYPE", torch.float32))
+            host.float()
+        t0 = time.perf_counter()
+        cpu = train_grads(host, data["cpu"])
+        t1 = time.perf_counter()
+        if f32:
+            with mock.patch.object(lm, "DTYPE", torch.bfloat16):
+                bf16 = train_grads(model, data["card"])
+            worst, rel = grad_gap(bf16[2], cpu[2])
+            gap = (f"; the bf16 gap (printed): the card's bf16 loss {bf16[0]:.6f} against the "
+                   f"CPU's f32 {cpu[0]:.6f}, worst gradient relative L2 error {rel:.4g} "
+                   f"({worst})")
+            del bf16
+            card = cut_model(model, cfg.n_layers, dev).float()
+        t2 = time.perf_counter()
+        got = train_grads(card, data["card"])
+        first, flips = routed_apart(cpu[3], got[3], n_moe, 1, cfg.top_k)
+        if flips:
+            got = train_grads(card, data["card"], force=[c["idx"] for c in cpu[3]])
+        t3 = time.perf_counter()
+        worst, rel = grad_gap(got[2], cpu[2])
+        aux_ok = flips or all(abs(got[1][k] - cpu[1][k]) <= TRAIN_LOSS_RTOL * abs(cpu[1][k])
+                              + 1e-6 for k in cpu[1])
+        ok = (abs(got[0] - cpu[0]) <= TRAIN_LOSS_RTOL * abs(cpu[0]) and aux_ok
+              and rel <= TRAIN_GRAD_REL_L2)
+        text = (f"{'f32' if f32 else 'bf16'}: loss {got[0]:.6f} vs {cpu[0]:.6f}, lb_loss "
+                f"{got[1]['lb_loss']:.6g} vs {cpu[1]['lb_loss']:.6g}, z_loss "
+                f"{got[1]['z_loss']:.6g} vs {cpu[1]['z_loss']:.6g}"
+                f"{' (not compared: a flip)' if flips else ''}; {len(cpu[2])} gradient leaves, "
+                f"worst relative L2 error {rel:.4g} ({worst})"
+                + (f"; {n_moe} MoE layers routed apart at {flips or 'no token'}"
+                   f"{' (gradients on the CPU routing)' if flips else ''}" if n_moe else ""))
+        del cpu, got, card, host
+    if not ok:
+        raise AssertionError(f"{cfg.name} train card vs CPU: {text}")
+    return (f"{text} (rtol {TRAIN_LOSS_RTOL:g}, at most {TRAIN_GRAD_REL_L2:g}){gap}; "
+            f"{time.perf_counter() - t:.2f} s: the CPU copy {t_copy:.2f} s, the CPU's "
+            f"gradients {t1 - t0:.2f} s, the card's {t3 - t2:.2f} s")
+
+
+def resume_path(card: str, root: str) -> dict:
+    """mamba2-130m whole through `launch/train.main`: ``RESUME_STEPS``
+    steps with a checkpoint every ``RESUME_AT``, checked (a) by a run
+    resumed from that checkpoint alone and (b) card against CPU → the
+    first run's launches."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.backends import ExecOptions
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.train.checkpoint import Checkpointer
+
+    flags = ["--arch", RESUME_ARCH, "--steps", str(RESUME_STEPS), "--batch", str(TRAIN_BATCH),
+             "--ckpt-every", str(RESUME_AT)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    run_a, out = {}, io.StringIO()
+    _build.LAUNCHES.reset()
+    t = time.perf_counter()
+    with train_probe(run_a), contextlib.redirect_stdout(out):
+        losses = train.main([*flags, "--ckpt-dir", os.path.join(root, "m")])
+    wall = time.perf_counter() - t
+    launches = launches_of(TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    plane, model = run_a["planes"][0][0], run_a["models"][0]
+    b, s = TRAIN_BATCH, plane.store.tokens.shape[2] - 1
+    nbytes = state_bytes(Checkpointer(os.path.join(root, "m")).manifest(RESUME_STEPS))
+    print(f"[train] {model.cfg.name} ({model.cfg.family}, {model.cfg.n_layers} layers whole, "
+          f"d_model {model.cfg.d_model}, vocab {model.cfg.vocab}), float32 states, batch {b} x "
+          f"{s} tokens through launch/train.main: plane {run_a['plane_s'][0]:.2f} s, main() "
+          f"{wall:.2f} s, steps "
+          f"{[round(dt * 1e3, 2) for dt in run_a['step_s']]} ms ({b * s / run_a['step_s'][-1]:.1f} "
+          f"tokens/s at the last), loss first {losses[0]:.6f} last {losses[-1]:.6f}; parameters "
+          f"{nbytes['params']} bytes, optimizer state {nbytes['opt']} bytes; "
+          f"max_memory_allocated {peak - before} bytes above the {before} the earlier phases "
+          f"hold; launches {json.dumps(launches, sort_keys=True)}; card {card}", flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{RESUME_ARCH}: non-finite losses {losses}")
+    resumed = os.path.join(root, "m2")
+    os.makedirs(resumed)
+    shutil.copytree(os.path.join(root, "m", f"step_{RESUME_AT}"),
+                    os.path.join(resumed, f"step_{RESUME_AT}"))
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tail = train.main([*flags, "--ckpt-dir", resumed, "--resume"])
+    wall_b = time.perf_counter() - t
+    np.testing.assert_allclose(tail, losses[RESUME_AT:], **TRAIN_TOL)
+    diff = max(abs(x - y) for x, y in zip(tail, losses[RESUME_AT:]))
+    check_a = (f"(a) resumed at step {RESUME_AT}: losses {[round(x, 6) for x in tail]} against "
+               f"{[round(x, 6) for x in losses[RESUME_AT:]]}, max difference {diff:.3g} (rtol "
+               f"{TRAIN_TOL['rtol']} atol {TRAIN_TOL['atol']}); main() {wall_b:.2f} s")
+    batch = next(plane.batches(1, 1, seed=1))
+    check_b = (f"(b) the whole model, batch 1, card vs CPU: "
+               f"{family_card_vs_cpu(model, batch, ExecOptions().torch_device())}")
+    print(f"[check] train {RESUME_ARCH}: {check_a}; {check_b}", flush=True)
+    del model, run_a, plane
     torch.cuda.empty_cache()
     return launches
+
+
+def family_train(arch: str, card: str) -> dict:
+    """``[train]`` for ``arch`` at full width on its cut (`FAMILY_TRAIN`):
+    a `PS3DataPlane` on the card over a token store of the arch's vocab,
+    seeded random weights drawn on the card (MoE experts at 1/sqrt(fan_in),
+    `fan_in_experts`), ``FAMILY_STEPS`` `make_train_step` steps on the
+    plane's batches (with frames or image embeddings drawn as
+    `serve.draw_extras` draws them), every loss finite; then (b) →
+    the launches of the plane and the steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.backends import ExecOptions
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import PS3DataPlane, make_token_store
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve, train
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps, tree
+
+    layers, state_dtype = FAMILY_TRAIN[arch]
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+    dev = ExecOptions().torch_device()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _build.LAUNCHES.reset()
+    t = time.perf_counter()
+    store = make_token_store(seq_len=129, vocab=cfg.vocab, seed=0)
+    t_store = time.perf_counter() - t
+    t = time.perf_counter()
+    plane = PS3DataPlane(store, seed=0)
+    t_plane = time.perf_counter() - t
+    t = time.perf_counter()
+    model = lm.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    if cfg.is_moe:
+        fan_in_experts(model)
+    params = lm.param_tree(model)
+    ocfg = opt.AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=10, total_steps=FAMILY_STEPS,
+                           state_dtype=state_dtype)
+    state = opt.init_state(ocfg, params)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+    step = steps.make_train_step(cfg, ocfg, steps.TrainOptions(remat=False))
+    losses, step_s = [], []
+    for i, batch in enumerate(plane.batches(TRAIN_BATCH, FAMILY_STEPS, seed=0)):
+        data = {**train.batch_tensors(batch, dev),
+                **serve.draw_extras(cfg, np.random.default_rng((0, i)), TRAIN_BATCH, dev)}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, state, metrics = step(model, state, data)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss)
+    launches = launches_of(TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{cfg.name}: non-finite losses {losses}")
+    b, s = TRAIN_BATCH, store.tokens.shape[2] - 1
+    state_b = sum(x.numel() * x.element_size() for x in tree.leaves(state))
+    n_moe = sum(blk.kind == "moe" for blk in model.blocks)
+    extras = "".join(f", {k} {tuple(v.shape)}" for k, v in data.items()
+                     if k in ("enc_frames", "img_embeds"))
+    print(f"[train] {cfg.name} ({cfg.family}, {cfg.n_layers} of {full.n_layers} layers"
+          f"{f' ({cfg.first_dense_layers} dense lead, {n_moe} MoE)' if cfg.is_moe else ''}"
+          f"{f', {cfg.n_enc_layers} encoder layers' if cfg.family == 'encdec' else ''}, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}), {state_dtype} states, batch {b} x {s} tokens"
+          f"{extras}: token store {t_store:.2f} s, plane {t_plane:.2f} s ({len(plane.shard_ids)} "
+          f"of {store.n_shards} shards), weights drawn on the card {t_init:.2f} s, steps "
+          f"{[round(x * 1e3, 2) for x in step_s]} ms ({b * s / step_s[-1]:.1f} tokens/s at the "
+          f"last), loss first {losses[0]:.6f} last {losses[-1]:.6f}; parameters "
+          f"{lm.param_bytes(model)} bytes, optimizer state {state_b} bytes; max_memory_allocated "
+          f"{peak - before} bytes above the {before} the earlier phases hold; launches "
+          f"{json.dumps(launches, sort_keys=True)}; card {card}", flush=True)
+    del state, params, step, data
+    seq = FAMILY_CHECK_SEQ.get(arch, s)
+    batch = {k: v[:, :seq] if k in ("tokens", "targets") else v
+             for k, v in next(plane.batches(1, 1, seed=1)).items()}
+    batch.update(serve.draw_extras(cfg, np.random.default_rng(1), 1, "cpu"))
+    print(f"[check] train {cfg.name}: losses {[round(x, 6) for x in losses]} finite; (b) the "
+          f"trained {cfg.n_layers} layers, batch 1 x {seq} tokens, card vs CPU: "
+          f"{family_card_vs_cpu(model, batch, dev)}", flush=True)
+    del model, plane
+    torch.cuda.empty_cache()
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_checks(model, plane, ckpt: str, step: int, plain: dict) -> str:
+    """``[check] dist``: the multi-device layer on a one-rank NCCL group
+    (the machine has one card): `compressed_pod_mean` on the trained
+    model's gradients of one plane batch, bit-equal to the plain form
+    with one pod and within the int8 bound of each leaf; the ``step``
+    checkpoint restored onto a (1, 1) ``("data", "model")`` CUDA
+    `DeviceMesh` through `param_shardings`, bit-equal to ``plain``, the
+    plain restore of the same checkpoint that the resumed
+    `launch/train.main` made; a train step with ``compress_pod_grads``
+    bit-equal to one without.  The group is destroyed before it
+    returns."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.backends import ExecOptions
+    from repro_torch.distributed import compress, sharding
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps, tree
+    from repro_torch.train.checkpoint import Checkpointer
+
+    dev = ExecOptions().torch_device()
+    t = time.perf_counter()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    # NCCL on the card (gloo where the phase is rehearsed on the CPU)
+    dist.init_process_group({"cuda": "nccl", "cpu": "gloo"}[dev.type],
+                            init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh(dev.type, torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        t_init = time.perf_counter() - t
+        cfg = model.cfg
+        data = train.batch_tensors(next(plane.batches(TRAIN_BATCH, 1, seed=2)), dev)
+        params = lm.param_tree(model.requires_grad_(True))
+        loss, _ = lm.loss_fn(cfg, model, data)
+        grads = tree.unflatten(params, torch.autograd.grad(loss, tree.leaves(params)))
+        del loss
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        means, errs = compress.compressed_pod_mean(grads, dist.group.WORLD)
+        torch.cuda.synchronize()
+        t_mean = time.perf_counter() - t
+        plain_m, plain_e = compress.compressed_pod_mean_plain(
+            tree.tree_map(lambda g: g[None], grads))
+        n_el = n_groups = 0
+        worst = ("", 0.0)
+        for path, g in tree.flatten(grads).items():
+            m, e = tree.flatten(means)[path], tree.flatten(errs)[path]
+            if not (torch.equal(m, tree.flatten(plain_m)[path])
+                    and torch.equal(e, tree.flatten(plain_e)[path][0])):
+                raise AssertionError(f"dist: the NCCL pod mean of {path} is not the plain form's")
+            rel = float((m - g.float()).abs().max() / g.float().abs().max().clamp_min(1e-30))
+            worst = max(worst, (path, rel), key=lambda x: x[1])
+            groups = -(-g.numel() // compress.GROUP)
+            n_groups, n_el = n_groups + groups, n_el + groups * compress.GROUP
+        if worst[1] >= DIST_REL_ERR:
+            raise AssertionError(f"dist: {worst[0]} relative max error {worst[1]}")
+        del means, errs, plain_m, plain_e, grads
+        text = (f"{dist.get_backend()} group of 1 rank ({t_init:.2f} s with the (1, 1) mesh): "
+                f"compressed_pod_mean of {len(tree.flatten(params))} gradient leaves "
+                f"({n_el} values in {n_groups} groups of {compress.GROUP}) in {t_mean * 1e3:.2f} "
+                f"ms, two all_reduces of {4 * n_groups} scale bytes (max) and {4 * n_el} int32 "
+                f"code bytes (sum; an int8 wire format would carry {n_el}), bit-equal to the "
+                f"plain form with one pod, worst relative max error {worst[1]:.4g} ({worst[0]}; "
+                f"< {DIST_REL_ERR})")
+
+        t = time.perf_counter()
+        placed = tree.flatten(Checkpointer(ckpt).restore(
+            step, plain, shardings=sharding.param_shardings(plain, mesh)))
+        t_placed = time.perf_counter() - t
+        want_flat = tree.flatten(plain)
+        for path, want in want_flat.items():
+            got = placed[path]
+            if not (got.device_mesh == mesh and got.dtype == want.dtype
+                    and torch.equal(got.full_tensor(), want)):
+                raise AssertionError(f"dist: the elastic restore of {path} differs")
+        nbytes = sum(x.numel() * x.element_size() for x in want_flat.values())
+        del placed, want_flat
+        text += (f"; step_{step} restored onto the (1, 1) mesh through param_shardings "
+                 f"({nbytes} bytes, {t_placed:.2f} s), every leaf a DTensor bit-equal to the "
+                 f"resumed run's plain restore")
+
+        ocfg = opt.AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=10, total_steps=TRAIN_STEPS)
+        runs = []
+        for on in (False, True):
+            copy = cut_model(model, cfg.n_layers, dev)
+            step_fn = steps.make_train_step(cfg, ocfg, steps.TrainOptions(
+                remat=False, compress_pod_grads=on))
+            st = opt.init_state(ocfg, lm.param_tree(copy))
+            copy, st, metrics = step_fn(copy, st, data)
+            runs.append((tree.flatten({"p": lm.param_tree(copy), "s": st}), metrics))
+            del copy, st
+        (a, ma), (b, mb) = runs
+        if not (a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+                and all(torch.equal(ma[k], mb[k]) for k in ma)):
+            raise AssertionError("dist: a compress_pod_grads step differs from the plain step")
+        text += (f"; a train step with compress_pod_grads bit-equal to one without "
+                 f"({len(a)} parameter and state leaves, loss {float(ma['loss']):.6f})")
+        del runs, a, b
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return text
+
+
+class LMPhases:
+    """Phases 11 and 12 in a second process on the same card, started after
+    phase 3 (whose kernel times it would disturb) and run beside phases 4
+    to 10: both sides are host-bound (the card idles most of the time), so
+    the run takes about the longer side instead of their sum.  Each
+    process counts its own launches; the second writes its two phases'
+    counts to a file, and its output is printed when it is joined."""
+
+    def __init__(self, card: str):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+        self.result = os.path.join(self.dir, "launches.json")
+        self.log = os.path.join(self.dir, "stdout.txt")
+        self.t0 = time.time()  # the wall clock both processes read
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--lm-phases", self.result,
+                 "--card", card, "--parent", str(os.getpid())], stdout=out, cwd=ROOT)
+        self.shown = False
+        print(f"[lm] phases 11 and 12 started in process {self.proc.pid} beside phases 4 to 10",
+              flush=True)
+
+    def show(self) -> None:
+        if not self.shown and os.path.exists(self.log):
+            self.shown = True
+            with open(self.log) as f:
+                sys.stdout.write(f.read())
+            sys.stdout.flush()
+
+    def join(self) -> tuple[dict, dict]:
+        """Wait for the second process → (the --aqp launches, the training
+        launches); raises if it failed."""
+        import torch
+
+        t = time.time()
+        rc = self.proc.wait()
+        self.show()
+        if rc != 0:
+            raise RuntimeError(f"phases 11 and 12 failed in their process (exit code {rc})")
+        with open(self.result) as f:
+            res = json.load(f)
+        print(f"[lm] phases 11 and 12 ended {res['ended'] - self.t0:.2f} s after their process "
+              f"started, {max(0.0, res['ended'] - t):.2f} s after phase 10 ended; phases 1 to "
+              f"10 peaked at max_memory_allocated {torch.cuda.max_memory_allocated()}, "
+              f"max_memory_reserved {torch.cuda.max_memory_reserved()} bytes", flush=True)
+        return res["aqp"], res["train"]
+
+    def stop(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.show()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def lm_phases_main(args) -> int:
+    """Phases 11 and 12 alone (the second process of `LMPhases`)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: IEEE f32
+    def orphaned():  # the first process died without stopping this one
+        while os.getppid() == args.parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    clock = PhaseClock()
+    aqp = lm_path(args.card)
+    clock.done(11, "lm")
+    trained = train_path(args.card)
+    clock.done(12, "train")
+    with open(args.lm_phases, "w") as f:
+        json.dump({"aqp": aqp, "train": trained, "ended": time.time()}, f)
+    return 0
 
 
 class PhaseClock:
@@ -3319,7 +3872,9 @@ class PhaseClock:
     def __init__(self):
         self.t0 = self.t = time.perf_counter()
 
-    def done(self, n: int, name: str) -> None:
+    def done(self, n: int | str, name: str) -> None:
+        if "torch" in sys.modules:  # the other process may use the cached blocks
+            sys.modules["torch"].cuda.empty_cache()
         now = time.perf_counter()
         print(f"[time] phase {n} {name} {now - self.t:.2f}", flush=True)
         self.t = now
@@ -3327,6 +3882,8 @@ class PhaseClock:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.lm_phases:
+        return lm_phases_main(args)
     import torch
 
     from repro_torch.data.datasets import make_dataset
@@ -3359,23 +3916,25 @@ def main(argv=None) -> int:
         print(f"[reduced] {cut}", flush=True)
     clock.done(1, "card")
 
+    # the nvcc processes build while the table is drawn
     t = time.perf_counter()
-    logs = _build.build_all()
-    print(f"[build] {sorted(logs)} in {time.perf_counter() - t:.2f} s "
-          f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(lambda: (_build.build_all(), time.perf_counter() - t))
+        table = make_dataset("tpch", num_partitions=args.partitions,
+                             rows_per_partition=args.rows, seed=args.seed)
+        queries = WorkloadSpec(table, seed=args.seed).sample_workload(args.queries)
+        n_feat = build_feature_schema(table).dim
+        t_data = time.perf_counter() - t
+        logs, t_build = build.result()
+    print(f"[build] {sorted(logs)} in {t_build:.2f} s "
+          f"(nvcc {' '.join(_build.NVCC_FLAGS)}), beside the table", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
-
-    t = time.perf_counter()
-    table = make_dataset("tpch", num_partitions=args.partitions,
-                         rows_per_partition=args.rows, seed=args.seed)
-    queries = WorkloadSpec(table, seed=args.seed).sample_workload(args.queries)
-    n_feat = build_feature_schema(table).dim
     print(f"[data] tpch {table.num_partitions}x{table.rows_per_partition} "
           f"({len(table.schema)} columns), {len(queries)} queries, feature dim {n_feat}, "
-          f"in {time.perf_counter() - t:.2f} s", flush=True)
+          f"in {t_data:.2f} s", flush=True)
     clock.done(2, "build")
 
     held_out = WorkloadSpec(table, seed=args.seed + 1).sample_workload(args.held_out)
@@ -3385,29 +3944,34 @@ def main(argv=None) -> int:
                        dev, args.seed))
     clock.done(3, "kernels")
 
-    offline_path(table, queries, args)
-    clock.done(4, "offline")
+    # a SIGTERM (a time limit) unwinds through the `finally` that stops
+    # the second process
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    lm = LMPhases(card)
+    try:
+        offline_path(table, queries, args)
+        clock.done(4, "offline")
 
-    sess, launches, walls, planned, held_out = session_path(table, args)
-    report_answers(sess, table, planned, walls, held_out, args)
-    clock.done(5, "session")
+        sess, launches, walls, planned, held_out = session_path(table, args)
+        report_answers(sess, table, planned, walls, held_out, args)
+        clock.done(5, "session")
 
-    fit = check_forest(sess, table, args)
-    clock.done(6, "forest")
+        fit = check_forest(sess, table, args)
+        clock.done(6, "forest")
 
-    plane = plane_path(sess, queries, held_out, planned, args)
-    clock.done(7, "plane")
+        plane = plane_path(sess, queries, held_out, planned, args)
+        clock.done(7, "plane")
 
-    stream, stream_keys = stream_path(sess, queries, held_out, args)
-    clock.done(8, "stream")
-    serve = serve_path(sess, held_out, fit, args)
-    clock.done(9, "serve")
-    life = lifecycle_path(sess, held_out, stream_keys, args)
-    clock.done(10, "lifecycle")
-    aqp = lm_path(card)
-    clock.done(11, "lm")
-    trained = train_path(card)
-    clock.done(12, "train")
+        stream, stream_keys = stream_path(sess, queries, held_out, args)
+        clock.done(8, "stream")
+        serve = serve_path(sess, held_out, fit, args)
+        clock.done(9, "serve")
+        life = lifecycle_path(sess, held_out, stream_keys, args)
+        clock.done(10, "lifecycle")
+        aqp, trained = lm.join()
+        clock.done("11-12", "wait")
+    finally:
+        lm.stop()
     for name, rec in records.items():
         rec["session_launches"] = launches.get(name, 0)
         rec["plane_launches"] = plane.get(name, 0)

@@ -28,6 +28,9 @@ counts.  Phases are labelled ``sketches.*`` (cold build), ``stream.*``
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 from torch.profiler import record_function
@@ -48,6 +51,9 @@ NUM_BUCKETS = 10
 AKMV_K = 128
 HH_SUPPORT = 0.01
 BITMAP_K = 25
+AKMV_BLOCK = 64  # partitions per `_akmv` block on its thread pool
+_AKMV_POOL: ThreadPoolExecutor | None = None
+_AKMV_LOCK = threading.Lock()
 
 MEASURE_NAMES = (
     "mean", "min", "max", "meansq", "std",
@@ -141,13 +147,36 @@ def _equi_depth_edges(col: np.ndarray, buckets: int = NUM_BUCKETS) -> np.ndarray
 def _akmv(col: np.ndarray, k: int = AKMV_K):
     """AKMV sketch per partition: ndv estimate + distinct-value freq stats.
 
-    One vectorized pass for all partitions: sort the hashes per row, turn
-    run boundaries into run ids, and segment-count the run lengths — the
-    k *minimum* hashed values are exactly the first k runs of the sorted
-    order, so the top-k selection is a prefix mask, not a loop.  The hash
-    stays in float64 on the host: a float32 image of the 53-bit hashes
-    would collide at partition sizes.
+    One vectorized pass per block of ``AKMV_BLOCK`` partitions: sort the
+    hashes per row, turn run boundaries into run ids, and segment-count
+    the run lengths — the k *minimum* hashed values are exactly the first
+    k runs of the sorted order, so the top-k selection is a prefix mask,
+    not a loop.  The hash stays in float64 on the host: a float32 image of
+    the 53-bit hashes would collide at partition sizes.  Every step works
+    on one partition's row, so the blocks run on a thread pool (numpy
+    releases the GIL in the hash, the sort and the reductions) and their
+    concatenation is bit-identical to one pass over all partitions.
     """
+    n = col.shape[0]
+    if n <= AKMV_BLOCK:
+        return _akmv_block(col, k)
+    parts = list(_akmv_pool().map(lambda s: _akmv_block(col[s:s + AKMV_BLOCK], k),
+                                  range(0, n, AKMV_BLOCK)))
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
+
+
+def _akmv_pool() -> ThreadPoolExecutor:
+    global _AKMV_POOL
+    with _AKMV_LOCK:
+        if _AKMV_POOL is None:
+            _AKMV_POOL = ThreadPoolExecutor(min(8, os.cpu_count() or 1),
+                                            thread_name_prefix="akmv")
+        return _AKMV_POOL
+
+
+def _akmv_block(col: np.ndarray, k: int):
+    """`_akmv` over the partitions (rows) of ``col`` in one pass."""
     n, r = col.shape
     hs = np.sort(hash_u64(col.reshape(-1)).reshape(n, r), axis=1)
     new = np.ones((n, r), bool)

@@ -9,10 +9,11 @@ Features exercised: PS³ shard selection + weighted loss, checkpoint/resume
 ``--device`` is ``cuda`` by default; ``cpu`` runs the plain versions (the
 tests, with ``--smoke``).  A ``cuda`` request without a GPU raises:
 nothing continues on the CPU.  The dense, MoE, hybrid and SSM families
-train (`repro_torch.models.lm`); all but the dense family's loss and
-gradients are held to the reference on the CPU only so far.  The
-encoder-decoder and VLM families raise `NotImplementedError`: the token
-plane gives them no frames or images.
+train (`repro_torch.models.lm`), each held to the reference on the CPU
+and to the CPU on the card.  The encoder-decoder and VLM families raise
+`NotImplementedError`, as the reference's trainer fails: the token plane
+gives them no frames or images (`train.steps.make_train_step` trains
+them on batches that carry ``enc_frames`` or ``img_embeds``).
 """
 from __future__ import annotations
 
@@ -91,10 +92,11 @@ def main(argv=None) -> list[float]:
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family in ("encdec", "vlm"):
         # the reference's trainer fails here too, in `_encode(..., None)`
-        # for whisper; training these on the card is ROADMAP.md § 1 item 10 (i)
+        # for whisper
         raise NotImplementedError(
             f"{cfg.name}: the PS³ token plane yields tokens only, and the {cfg.family} "
-            "family needs frame or image embeddings beside them (ROADMAP.md § 1 item 10 (i))")
+            "family needs frame or image embeddings beside them (train.steps."
+            "make_train_step takes batches that carry them)")
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M")
 
     store = make_token_store(seq_len=129, vocab=cfg.vocab, seed=args.seed)

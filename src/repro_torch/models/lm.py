@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.axes import constrain
 from repro_torch.models import mla, moe, rglru, ssd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -236,13 +237,17 @@ def _positions(b: int, s: int, device):
 
 def _unit(cfg, blocks, positions, x, lb, zl, crosses=(), enc_out=None):
     """One pattern unit's blocks, each followed by its cross-attention
-    over ``enc_out`` where ``crosses`` has one (whisper's decoder)."""
+    over ``enc_out`` where ``crosses`` has one (whisper's decoder), else
+    by the sequence-parallel constraint (the reference's scan places none
+    in whisper's decoder)."""
     for i, blk in enumerate(blocks):
         x, _, aux = _block_apply(blk, x, cfg, positions=positions)
         if aux is not None:
             lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
         if crosses:
             x = x + _cross_apply(crosses[i], x, cfg, *_cross_kv(crosses[i], enc_out, cfg))
+        else:
+            x = constrain(x, "batch", "seq", None)
     return x, lb, zl
 
 
@@ -288,7 +293,7 @@ def forward_hidden(cfg: ModelConfig, params: LM, tokens, *, img_embeds=None,
     reference's module flag ``REMAT_UNITS``, held per call here; the
     leading dense layers run outside the scan there, and unchecked here)."""
     pin_f32_accumulation()
-    x = _embed(cfg, params, tokens, img_embeds)
+    x = constrain(_embed(cfg, params, tokens, img_embeds), "batch", None, None)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     enc_out = _encode(cfg, params, enc_frames) if cfg.family == "encdec" else None
@@ -329,7 +334,7 @@ CE_CHUNK = 1024  # sequence-chunked cross entropy (never materialize logits)
 
 def _ce_chunk(hs, head, ts, vs, wn):
     """One chunk's weighted nll and z-loss sums: bf16 logits, f32 LSE."""
-    logits = (hs @ head).float()  # (B, C, V)
+    logits = constrain((hs @ head).float(), "batch", None, "model")  # (B, C, V)
     lse = torch.logsumexp(logits, dim=-1)  # (B, C)
     gold = torch.gather(logits, -1, ts[..., None].long())[..., 0]
     nll = (lse - gold) * vs[None, :]
@@ -374,6 +379,7 @@ def loss_fn(cfg: ModelConfig, params: LM, batch, *, remat_units: bool = False):
     """
     h, aux = forward_hidden(cfg, params, batch["tokens"], img_embeds=batch.get("img_embeds"),
                             enc_frames=batch.get("enc_frames"), remat_units=remat_units)
+    h = constrain(h, "batch", None, None)  # un-shard S before the CE chunking
     loss, zl = chunked_ce(h, _head_table(cfg, params), batch["targets"],
                           batch.get("loss_weights"))
     total = loss + cfg.router_aux_coef * aux["lb_loss"] + 1e-4 * (aux["z_loss"] + zl)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.axes import constrain
 from repro_torch.models.layers import MLP, _param, dense_init, mlp
 
 
@@ -96,11 +97,14 @@ def moe_apply(p: MoE, x, cfg):
     x_rep = torch.repeat_interleave(xt, k, dim=0).masked_fill(~keep[:, None], 0)  # (T*k, d)
     buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=xt.device).index_copy(
         0, dest, x_rep)
-    expert_in = buf[:-1].reshape(e, cap, d)
+    # EP × DP sharding of the expert buffers on a mesh: experts on
+    # "model", the capacity dim on the DP axes (`distributed.axes`)
+    expert_in = constrain(buf[:-1].reshape(e, cap, d), "model", "batch", None)
 
     # ---- expert FFN: bf16 batched products, f32 accumulation
     h = nn.functional.silu(torch.bmm(expert_in, p.wg)) * torch.bmm(expert_in, p.wi)
-    expert_out = torch.bmm(h, p.wo).reshape(e * cap, d)
+    h = constrain(h, "model", "batch", None)
+    expert_out = constrain(torch.bmm(h, p.wo), "model", "batch", None).reshape(e * cap, d)
     expert_out = torch.cat([expert_out, expert_out.new_zeros((1, d))])
 
     # ---- combine: gather back + gate

@@ -15,8 +15,11 @@ scale)`` state as ``.../0`` and ``.../1``), bf16 stored as its ``uint16``
 bit view — the
 reference's `repro.train.checkpoint` format, so a checkpoint it wrote for
 a tree with the same paths and dtypes loads here byte for byte.
-`restore(step, like, device)` places the leaves on ``device`` (by
-default each on its ``like`` leaf's device).
+`restore(step, like, shardings, device)` places the leaves on ``device``
+(by default each on its ``like`` leaf's device) or, given a same-structure
+tree of `distributed.sharding.NamedSharding`s, distributes each onto its
+mesh (elastic restore: a checkpoint saved whole, or on another mesh,
+restores onto any mesh).
 """
 from __future__ import annotations
 
@@ -116,20 +119,30 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like_tree, device=None):
+    def restore(self, step: int, like_tree, shardings=None, device=None):
         """Restore into the structure of `like_tree` (shapes must match;
         dtypes follow its leaves), each leaf on ``device`` or, by
-        default, on its ``like_tree`` leaf's device."""
+        default, on its ``like_tree`` leaf's device; ``shardings`` (the
+        same structure of `NamedSharding`s) makes each leaf a `DTensor`
+        placed on its sharding's mesh (elastic re-sharding)."""
         d = os.path.join(self.dir, f"step_{step}")
         flat_like = flatten(like_tree)
+        flat_sh = flatten(shardings) if shardings is not None else None
         by_path = {}
         with np.load(os.path.join(d, "arrays.npz")) as data:
             for k, want in flat_like.items():
                 arr = data[k]
                 if tuple(arr.shape) != tuple(want.shape):
                     raise ValueError(f"{k}: shape {arr.shape} != {tuple(want.shape)}")
-                by_path[k] = _from_npz(arr, want.dtype).to(
-                    want.device if device is None else device)
+                t = _from_npz(arr, want.dtype)
+                if flat_sh is not None:
+                    from torch.distributed.tensor import distribute_tensor
+
+                    sh = flat_sh[k]
+                    by_path[k] = distribute_tensor(t.to(sh.mesh.device_type), sh.mesh,
+                                                   sh.placements)
+                else:
+                    by_path[k] = t.to(want.device if device is None else device)
         return rebuild(like_tree, by_path)
 
     def manifest(self, step: int) -> dict:

@@ -18,8 +18,11 @@ move ``lr`` by an ulp); parameters keep their dtype (bf16: master-less,
 no stochastic rounding, as in the reference).
 
 The reference maps a layer-stacked leaf layer by layer (`lax.map`) to
-bound its f32 temporaries; the port holds one tensor per block, and the
-scale is over the last axis, so the math is the same.
+bound its f32 temporaries; the port holds one tensor per block, and
+updates a leaf of more than ``UPDATE_CHUNK`` elements in slices along
+its first axis (an expert stack, an embedding), each slice's moments
+written into the new state in place.  Every op is elementwise or over
+the last axis (the int8 scale), so the math is the same.
 """
 from __future__ import annotations
 
@@ -54,6 +57,11 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     )
     cos = 0.5 * (1 + torch.cos(math.pi * t))
     return cfg.peak_lr * warm * (0.1 + 0.9 * cos)
+
+
+# the most elements a leaf's update takes at once: its f32 temporaries
+# (about ten of them) then stay near 5 GB for the largest leaves
+UPDATE_CHUNK = 1 << 27
 
 
 # ---- int8 row-wise quantization ---------------------------------------------
@@ -118,7 +126,7 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
     b1c = 1 - cfg.b1 ** stepf
     b2c = 1 - cfg.b2 ** stepf
 
-    def upd(p, g, m_s, v_s):
+    def block(p, g, m_s, v_s):
         g = g.float() * scale
         m = _from_state_dtype(m_s, cfg.state_dtype, p.shape)
         v = _from_state_dtype(v_s, cfg.state_dtype, p.shape)
@@ -130,6 +138,21 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
         pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf)
         p.copy_(pf)
         return _to_state_dtype(m, cfg.state_dtype), _to_state_dtype(v, cfg.state_dtype)
+
+    def upd(p, g, m_s, v_s):
+        if p.dim() < 2 or p.numel() <= UPDATE_CHUNK:
+            return block(p, g, m_s, v_s)
+        rows = max(1, UPDATE_CHUNK // p[0].numel())
+        new = None
+        for i in range(0, p.shape[0], rows):
+            sl = slice(i, i + rows)
+            part = block(p[sl], g[sl], tree_map(lambda s: s[sl], m_s),
+                         tree_map(lambda s: s[sl], v_s))
+            if new is None:  # the new moments, of the state's shapes and dtypes
+                new = tree_map(lambda s, t: t.new_empty((p.shape[0],) + tuple(t.shape[1:])),
+                               (m_s, v_s), part)
+            tree_map(lambda dst, src: dst[sl].copy_(src), new, part)
+        return new
 
     out = tree_map(upd, params, grads, state["m"], state["v"])
     # ``out`` has a (m, v) pair at each parameter's place

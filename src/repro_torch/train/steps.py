@@ -2,8 +2,10 @@
 execute.
 
 train_step: microbatched grad accumulation (a loop over microbatches;
-accumulators in ``accum_dtype``), optional unit-level remat, AdamW
-update.  The model's parameters are trained in place.
+accumulators in ``accum_dtype``), optional unit-level remat, the
+optional int8 error-feedback compressed cross-pod gradient mean
+(`distributed.compress`), AdamW update.  The model's parameters are
+trained in place.
 
 serve_step: one decode token against the KV cache (written in place);
 prefill_step: the full-prompt forward, returning the next-token logits.
@@ -14,6 +16,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed import compress
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt
@@ -24,7 +27,7 @@ from repro_torch.train import tree
 class TrainOptions:
     num_microbatches: int = 1
     remat: bool = True
-    compress_pod_grads: bool = False  # int8 EF all-reduce across "pod" (not ported)
+    compress_pod_grads: bool = False  # int8 EF all-reduce across "pod"
     accum_dtype: str = "float32"  # microbatch grad accumulator ("bfloat16"
     # halves the accumulator tree for ≥100B configs)
 
@@ -38,10 +41,6 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, topts: TrainOptions
     flag goes to each `lm.loss_fn` call, where the reference sets its
     module-global ``lm.REMAT_UNITS``.
     """
-    if topts.compress_pod_grads:
-        raise NotImplementedError(
-            "compress_pod_grads is not ported yet (ROADMAP.md § 1 item 10 (h): "
-            "distributed/{sharding,compress}.py)")
     adt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[topts.accum_dtype]
 
     def value_and_grad(model, leaves, micro):
@@ -70,6 +69,8 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, topts: TrainOptions
             p.requires_grad_(True)
         loss, aux, g = grads_of(model, leaves, batch)
         grads = tree.unflatten(params, g)
+        if topts.compress_pod_grads:
+            grads = compress.maybe_compressed_pod_mean(grads)
         _, opt_state, om = opt.apply_updates(ocfg, params, grads, opt_state)
         metrics = {"loss": loss, **aux, **om}
         return model, opt_state, metrics

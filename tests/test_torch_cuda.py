@@ -20,7 +20,7 @@ equals a cold rebuild of the grown table bit for bit.  A qwen-smoke train
 step on the card agrees with the CPU (the loss, every gradient and two
 steps' losses, at the CPU parity tests' tolerances), and so do the MoE,
 hybrid, SSM, encoder-decoder and VLM smoke models' prefill and decode
-steps.
+steps, and their loss, gradients and a train step.
 """
 import numpy as np
 import pytest
@@ -1136,3 +1136,76 @@ def test_encdec_vlm_smoke_card_matches_cpu(cuda, arch):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=5e-2, atol=5e-2)
         if want.any():
             assert np.corrcoef(want.ravel().numpy(), got.ravel().numpy())[0, 1] > 0.999
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v2_236b", "recurrentgemma_9b",
+                                  "mamba2_130m", "whisper_small", "internvl2_26b"])
+def test_family_train_step_card_matches_cpu(cuda, arch, monkeypatch):
+    """A train step of each family beyond the dense one (MoE, hybrid, SSM,
+    encoder-decoder, VLM) on its smoke config, card against CPU from the
+    same weights and batches (whisper's frames and internvl's image
+    embeddings drawn as `serve.draw_extras` draws them): `lm.loss_fn`,
+    its router terms and every gradient leaf at the CPU tests'
+    tolerances (``rtol=1e-3``; relative L2 ``5e-2``), then one
+    `make_train_step` step each whose losses agree at ``rtol=2e-2``.  The
+    card takes the CPU's routing decisions (each MoE call's expert ids),
+    so that a near tie that the two lowerings break apart moves no
+    gradient; the experts are scaled by fan-in, as in
+    `test_moe_smoke_card_matches_cpu`."""
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import lm, moe
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    cfg = get_smoke(arch)
+    models = {"cpu": lm.init_params(cfg, torch.Generator().manual_seed(0))}
+    if cfg.is_moe:
+        for blk in models["cpu"].blocks:
+            for name in ("wi", "wg", "wo"):
+                w = getattr(blk.ffn, name)
+                w.copy_((w.float() * np.sqrt(w.shape[0] / w.shape[1])).to(w.dtype))
+    models["card"] = copy.deepcopy(models["cpu"]).to(cuda)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (2, 4, 17))
+    batches = [{"tokens": t[:, :-1], "targets": t[:, 1:],
+                "loss_weights": rng.uniform(0.2, 2.0, 4).astype(np.float32)} for t in toks]
+    extras = [serve.draw_extras(cfg, rng, 4, "cpu") for _ in batches]
+    routed, real_route = [], moe.route
+
+    def route(p, xt, c):
+        logits, probs, gates, idx = real_route(p, xt, c)
+        if xt.device.type == "cpu":
+            routed.append(idx)
+        else:
+            idx = routed.pop(0).to(xt.device)
+            gates = torch.gather(probs, 1, idx)
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        return logits, probs, gates, idx
+
+    monkeypatch.setattr(moe, "route", route)
+    out = {}
+    ocfg = opt.AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=6)
+    for where in ("cpu", "card"):
+        dev = cuda if where == "card" else torch.device("cpu")
+        model = models[where].requires_grad_(True)
+        data = [{**batch_tensors(b, dev), **{k: v.to(dev) for k, v in x.items()}}
+                for b, x in zip(batches, extras)]
+        loss, aux = lm.loss_fn(cfg, model, data[0])
+        names, leaves = zip(*model.named_parameters())
+        grads = dict(zip(names, (g.float().cpu() for g in torch.autograd.grad(loss, leaves))))
+        step = steps.make_train_step(cfg, ocfg, steps.TrainOptions(remat=False))
+        _, _, metrics = step(model, opt.init_state(ocfg, lm.param_tree(model)), data[1])
+        out[where] = ([float(loss.detach())] + [float(aux[k].detach()) for k in ("lb_loss", "z_loss")],
+                      grads, float(metrics["loss"]))
+    assert not routed
+    (cpu_l, cpu_g, cpu_step), (card_l, card_g, card_step) = out["cpu"], out["card"]
+    np.testing.assert_allclose(card_l, cpu_l, rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(card_step, cpu_step, rtol=2e-2)
+    assert np.isfinite(card_step)
+    for name, want in cpu_g.items():
+        rel = float((card_g[name] - want).norm() / want.norm().clamp_min(1e-30))
+        assert rel <= 5e-2, (name, rel)

@@ -385,7 +385,8 @@ def test_vlm_cache_length_and_decode_past_it(reference_runs):
 @pytest.mark.parametrize("arch", ["whisper-small", "internvl2-26b"])
 def test_train_main_refuses(arch, tmp_path):
     """The token plane gives no frames or images (the reference's trainer
-    fails in `_encode(..., None)` for whisper)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md § 1 item 10 \(i\)"):
+    fails in `_encode(..., None)` for whisper): the refusal names the
+    entry point that trains these families."""
+    with pytest.raises(NotImplementedError, match=r"make_train_step takes batches that carry"):
         train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1",
                     "--ckpt-dir", str(tmp_path)])

@@ -26,8 +26,11 @@ from repro_torch import carry
 from repro_torch.backends import ExecOptions
 from repro_torch.core import ingest
 from repro_torch.core.sketches import (
+    AKMV_BLOCK,
+    AKMV_K,
     SketchStore,
     _akmv,
+    _akmv_block,
     _partition_bincount,
     akmv_finalize,
     akmv_state,
@@ -332,6 +335,21 @@ def _akmv_cases():
         # duplicate-heavy: every hash retained on both sides, large counts
         "duplicates": np.random.default_rng(17).integers(0, 6, size=(4, 300)).astype(np.float64),
     }
+
+
+@pytest.mark.parametrize("n", [AKMV_BLOCK + 1, 3 * AKMV_BLOCK + 5])
+def test_akmv_blocks_bit_identical(n):
+    """Past ``AKMV_BLOCK`` partitions `_akmv` runs its blocks on a thread
+    pool; the result is bit-identical to one pass over every partition
+    and to the reference's `_akmv`."""
+    rng = np.random.default_rng(n)
+    col = np.concatenate([rng.integers(0, 50, size=(n // 2, 200)),
+                          rng.integers(0, 10**6, size=(n - n // 2, 200))]).astype(np.int64)
+    ndv, freq = _akmv(col)
+    one_ndv, one_freq = _akmv_block(col, AKMV_K)
+    ref_ndv, ref_freq = ref_sketches._akmv(col)
+    for got, want in ((ndv, one_ndv), (freq, one_freq), (ndv, ref_ndv), (freq, ref_freq)):
+        np.testing.assert_array_equal(got, np.asarray(want))
 
 
 @pytest.mark.parametrize("case", sorted(_akmv_cases()))

@@ -259,8 +259,8 @@ def test_checkpoint_async(tmp_path):
 
 
 def test_restore_onto_device(tmp_path):
-    """Save, then restore onto a named device (the reference's elastic
-    restore takes shardings; the port takes the device)."""
+    """Save, then restore onto a named device (the elastic restore onto
+    a mesh, ``shardings=``, is in `tests/test_torch_distributed.py`)."""
     ck = Checkpointer(str(tmp_path))
     tree = {"w": torch.arange(16.0).reshape(4, 4)}
     ck.save(1, tree)

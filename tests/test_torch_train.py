@@ -36,7 +36,11 @@ Held across the two packages, on the same numpy inputs:
     first step, with 1 and 2 microbatches: 2 steps with f32 states, the
     first with int8 states (see the test): losses at ``rtol=2e-2`` (the
     reference's resume tolerance, `tests/test_substrate.py`), ``lr`` at
-    ``rtol=1e-6``;
+    ``rtol=1e-6``; so too on whisper-smoke and internvl-smoke batches that
+    carry ``enc_frames`` or ``img_embeds``, and with
+    ``compress_pod_grads``, whose step also equals the step without it
+    bit for bit (the one-process hook is the identity, as the
+    reference's);
 
 and on the port alone: remat on and off give the same loss and grads
 bit for bit, the loss and grads are finite on every dense smoke config,
@@ -143,6 +147,32 @@ def test_adamw_matches_reference(state_dtype):
                     assert np.abs(a.numpy().astype(int) - b.astype(int)).max() <= 1
                 else:  # its f32 scale
                     np.testing.assert_allclose(a.numpy(), b, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16", "int8"])
+def test_sliced_update_equals_whole(state_dtype, monkeypatch):
+    """A leaf larger than ``UPDATE_CHUNK`` is updated in slices along its
+    first axis: parameters and moments bit-equal to the whole-leaf update
+    (a chunk of 3 rows over a (7, 5, 4) leaf: slices of 3, 3 and 1)."""
+    rng = np.random.default_rng(4)
+    cfg = opt.AdamWConfig(peak_lr=0.05, warmup_steps=1, total_steps=5, state_dtype=state_dtype)
+
+    def tree_of(scale):
+        return {"w": torch.as_tensor(rng.normal(size=(7, 5, 4)) * scale, dtype=torch.bfloat16),
+                "b": torch.as_tensor(rng.normal(size=(6,)) * scale, dtype=torch.bfloat16)}
+
+    start, grads = tree_of(1.0), [tree_of(0.1) for _ in range(2)]
+    out = []
+    for chunk in (opt.UPDATE_CHUNK, 3 * 5 * 4):
+        monkeypatch.setattr(opt, "UPDATE_CHUNK", chunk)
+        params = {k: v.clone() for k, v in start.items()}
+        state = opt.init_state(cfg, params)
+        for g in grads:
+            params, state, _ = opt.apply_updates(cfg, params, g, state)
+        out.append(tree.flatten({"p": params, "s": state}))
+    assert out[0].keys() == out[1].keys()
+    for k in out[0]:
+        assert out[0][k].dtype == out[1][k].dtype and torch.equal(out[0][k], out[1][k]), k
 
 
 def test_schedule_matches_reference():
@@ -396,11 +426,83 @@ def test_train_state_carries_lead_and_experts():
                 np.testing.assert_array_equal(got[path].numpy(), np.asarray(a))
 
 
-def test_compress_pod_grads_not_ported():
-    cfg = configs.get_smoke("qwen1_5_0_5b")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md § 1 item 10 \(h\)"):
-        steps.make_train_step(cfg, opt.AdamWConfig(),
-                              steps.TrainOptions(compress_pod_grads=True))
+def test_compress_pod_grads_matches_reference():
+    """``compress_pod_grads``: the step's hook, `distributed.compress.
+    maybe_compressed_pod_mean`, is the identity on one process, as the
+    reference's is.  Two qwen-smoke steps with the option equal two
+    without it bit for bit (parameters, state and metrics), and the
+    reference's jitted step with the option at ``rtol=2e-2``."""
+    arch = "qwen1_5_0_5b"
+    ref_cfg, cfg = ref_configs.get_smoke(arch), configs.get_smoke(arch)
+    kw = dict(peak_lr=3e-3, warmup_steps=2, total_steps=6)
+    ref_step = jax.jit(ref_steps.make_train_step(
+        ref_cfg, ref_opt.AdamWConfig(**kw),
+        ref_steps.TrainOptions(remat=False, compress_pod_grads=True)))
+    params = reference_params(ref_cfg, seed=4)
+    state = ref_opt.init_state(ref_opt.AdamWConfig(**kw), params)
+    np_params, np_state = jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, state)
+    batches = [_batch(cfg, 20 + i) for i in range(2)]
+    runs = {}
+    for on in (False, True):
+        model = carry.lm_params(np_params, cfg, "cpu")
+        port_state = carry.train_state(np_params, np_state, cfg, "cpu")
+        step = steps.make_train_step(cfg, opt.AdamWConfig(**kw),
+                                     steps.TrainOptions(remat=False, compress_pod_grads=on))
+        metrics = []
+        for batch in batches:
+            model, port_state, m = step(model, port_state, _port_batch(batch))
+            metrics.append(m)
+        runs[on] = (lm.param_tree(model), port_state, metrics)
+    for a, b in zip(*(tree.leaves(runs[on][:2]) for on in (False, True))):
+        assert torch.equal(a, b)
+    for a, b in zip(runs[False][2], runs[True][2]):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    for batch, got in zip(batches, runs[True][2]):
+        params, state, want = ref_step(params, state, _ref_batch(batch))
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=2e-2)
+        np.testing.assert_allclose(float(got["lr"]), float(want["lr"]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("arch", ["whisper_small", "internvl2_26b"])
+def test_extras_train_step_matches_reference(arch, micro):
+    """`make_train_step` on batches that carry whisper's ``enc_frames`` or
+    internvl's ``img_embeds`` (drawn as `launch/serve.py` draws them),
+    with 1 and 2 microbatches (the extras sliced with the tokens) and f32
+    states: two steps from the reference's state after its first, as
+    `test_train_step_matches_reference` holds qwen — losses at
+    ``rtol=2e-2``, ``lr`` at ``rtol=1e-6``."""
+    from test_torch_encdec_vlm import _extras, _port_extras, _ref_extras
+
+    ref_cfg, cfg = ref_configs.get_smoke(arch), configs.get_smoke(arch)
+    kw = dict(peak_lr=3e-3, warmup_steps=2, total_steps=6)
+    ref_step = jax.jit(ref_steps.make_train_step(
+        ref_cfg, ref_opt.AdamWConfig(**kw),
+        ref_steps.TrainOptions(num_microbatches=micro, remat=False)))
+    params = reference_params(ref_cfg, seed=1)
+    state = ref_opt.init_state(ref_opt.AdamWConfig(**kw), params)
+    rng = np.random.default_rng(30)
+    batches = []
+    for i in range(3):
+        base = _batch(cfg, 30 + i)
+        batches.append((base, _extras(cfg, rng, b=base["tokens"].shape[0])))
+    base, extras = batches[0]
+    params, state, _ = ref_step(params, state, {**_ref_batch(base), **_ref_extras(extras)})
+    np_params, np_state = jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, state)
+    model = carry.lm_params(np_params, cfg, "cpu")
+    port_state = carry.train_state(np_params, np_state, cfg, "cpu")
+    port_step = steps.make_train_step(cfg, opt.AdamWConfig(**kw),
+                                      steps.TrainOptions(num_microbatches=micro, remat=False))
+    for base, extras in batches[1:]:
+        params, state, want = ref_step(params, state, {**_ref_batch(base),
+                                                       **_ref_extras(extras)})
+        model, port_state, got = port_step(model, port_state, {**_port_batch(base),
+                                                               **_port_extras(extras)})
+        assert set(got) == set(want)
+        assert np.isfinite(float(got["loss"]))
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=2e-2)
+        np.testing.assert_allclose(float(got["lr"]), float(want["lr"]), rtol=1e-6)
+    assert int(port_state["step"]) == 3
 
 
 # --------------------------------------------------------------------------
