@@ -101,7 +101,7 @@ Phases, each fatal on failure:
    ``EvalCache``'s; ``[wal]`` a delete that crashes at ``wal.apply``,
    ``wal.recover`` of the directory against ``replay`` on the live table
    (tables, sketches, answers and executes equal);
-11. (phases 11 and 12 run in a second process on the same card, started
+11. (phases 11 to 13 run in a second process on the same card, started
    after phase 3 and beside phases 4 to 10, its output printed after
    phase 10; each process counts its own launches) the LM substrate's
    serving path and ``launch/serve.py --aqp``:
@@ -154,27 +154,41 @@ Phases, each fatal on failure:
    restore, and a step with ``compress_pod_grads`` bit-equal to one
    without; then every other family: mamba2-130m whole through
    ``launch/train.main`` (4 steps, checkpoints every 2, (a) a resume from
-   step 2), and `train.steps.make_train_step` on a ``PS3DataPlane``'s
-   batches at full width for recurrentgemma-9b on one pattern unit (3
-   layers), mixtral-8x22b on 1 layer and deepseek-v2-236b on its lead
-   and one MoE layer (int8 states), whisper-small whole (with frame
-   embeddings) and internvl2-26b on 2 layers (with image embeddings):
-   each arch's ``[train]`` line (layers, state dtype, parameter and state
-   bytes, step times, tokens/s, first and last loss, peak memory), every
-   loss finite, and (b) card against CPU at batch 1 (32 tokens for the
+   step 2; the launcher keeps the reference launcher's options, remat
+   off and one microbatch), and `train.steps.make_train_step` on a
+   ``PS3DataPlane``'s batches at full width under each full config's
+   `train.steps.dryrun_train_options` (the reference dry run's state
+   dtype, microbatch count, accumulator and remat: int8 states, 8
+   microbatches and a bf16 accumulator for the MoE cuts, f32 states and
+   8 microbatches for internvl2-26b, f32 states and one microbatch for
+   the rest, remat on for all) for recurrentgemma-9b on one pattern unit
+   (3 layers), mixtral-8x22b on 1 layer, deepseek-v2-236b on its lead
+   and one MoE layer, whisper-small whole (with frame embeddings),
+   internvl2-26b on 2 layers (with image embeddings) and mamba2-130m
+   whole: each arch's ``[train]`` line (layers, options, parameter and
+   state bytes, step times, tokens/s, first and last loss, peak memory),
+   every loss finite, (b) card against CPU at batch 1 (32 tokens for the
    MoE and internvl cuts), MoE routing compared token by token, the
-   recurrent families in f32 where bf16 misses;
-13. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
+   recurrent families in f32 where bf16 misses, and (e) one step's
+   gradients under those options against one under
+   ``TrainOptions(remat=False)``, card against card, at
+   ``TRAIN_OPTIONS_REL_L2`` (remat's own gap printed on internvl2-26b);
+13. the examples' twins (``examples/*_torch.py``) through their
+   ``main()`` with their references' own arguments on the card:
+   ``[example]`` their output, wall, key outputs and kernel launches (the
+   two PS³ twins must launch kernels);
+14. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
    Each kernel's ``session_launches``, ``plane_launches``,
    ``stream_launches``, ``serve_launches``, ``lifecycle_launches``,
-   ``aqp_launches`` and ``train_launches`` count its launches in the
-   Session, plane, streaming, serving, lifecycle, ``--aqp`` and training
-   paths, and ``launches`` is their sum.  The LM model launches no
-   hand-written kernel (its reference has no Pallas kernel); the training
-   path's launches are its PS³ planes' (every arch's run).
+   ``aqp_launches``, ``train_launches`` and ``example_launches`` count
+   its launches in the Session, plane, streaming, serving, lifecycle,
+   ``--aqp``, training and examples paths, and ``launches`` is their
+   sum.  The LM model launches no hand-written kernel (its reference has
+   no Pallas kernel); the training path's launches are its PS³ planes'
+   (every arch's run).
 
-A ``[time] phase N <name> <s>`` line follows every phase (phases 11 and
-12 on their own process's clock, then ``[time] phase 11-12 wait`` on the
+A ``[time] phase N <name> <s>`` line follows every phase (phases 11 to
+13 on their own process's clock, then ``[time] phase 11-13 wait`` on the
 first's); ``[reduced]`` lines list what was cut to keep the run inside
 its time limit.
 
@@ -249,7 +263,8 @@ CUTS = (
     "phase 12 [train]: at full width, recurrentgemma-9b on 3 of 38 layers (one pattern "
     "unit), mixtral-8x22b on 1 of 56, deepseek-v2-236b on 2 of 60 (its dense lead and one MoE "
     "layer) and internvl2-26b on 2 of 48 (their whole models do not fit one card with "
-    "gradients and AdamW state); whisper-small and mamba2-130m whole; 3 steps each (mamba2: 4)",
+    "gradients and AdamW state); whisper-small and mamba2-130m whole; 3 steps each under the "
+    "dry-run options (mamba2-130m: 4 more through launch/train.main)",
     "phase 12 [check] train (b): batch 1 x 32 tokens for the mixtral-8x22b, deepseek-v2-236b "
     "and internvl2-26b cuts, to keep their CPU side short (128 tokens for the others)",
 )
@@ -270,7 +285,7 @@ def parse_args(argv=None):
     ap.add_argument("--held-out", type=int, default=16)
     ap.add_argument("--offline-partitions", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
-    # the second process of phases 11 and 12 (see LMPhases): its result
+    # the second process of phases 11 to 13 (see LMPhases): its result
     # file, the card line phase 1 printed and the first process's pid
     ap.add_argument("--lm-phases", metavar="RESULT_JSON", help=argparse.SUPPRESS)
     ap.add_argument("--card", help=argparse.SUPPRESS)
@@ -3092,15 +3107,16 @@ def train_probe(rec: dict):
     """Times the parts of `launch/train.main` without changing them: the
     token store, the plane (kept, with its first selection), each train
     step (the device synchronised), each checkpoint save (the call: the
-    host copy, and each write with its bytes), each restore's tree (kept),
-    the watchdog's verdicts and the model (`lm.init_params`)."""
+    host copy, and each write with its bytes), each restore's tree (a
+    copy kept), the watchdog's verdicts and the model
+    (`lm.init_params`)."""
     from unittest import mock
 
     import torch
 
     from repro_torch.launch import train
     from repro_torch.models import lm
-    from repro_torch.train import checkpoint
+    from repro_torch.train import checkpoint, tree
 
     def timed(fn, sink):
         def run(*a, **kw):
@@ -3147,9 +3163,10 @@ def train_probe(rec: dict):
         return model
 
     def restore(self, *a, **kw):
-        tree = restore_fn(self, *a, **kw)
-        rec["restores"].append(tree)
-        return tree
+        out = restore_fn(self, *a, **kw)
+        # a copy: the launcher's steps update the restored AdamW state in place
+        rec["restores"].append(tree.tree_map(lambda t: t.clone(), out))
+        return out
 
     make_step, write_fn = train.steps_mod.make_train_step, checkpoint.Checkpointer._write
     observe_fn, init_fn = train.StepWatchdog.observe, lm.init_params
@@ -3378,22 +3395,22 @@ def train_path(card: str) -> dict:
 
 # ... and every other family on the card: mamba2-130m whole through
 # `launch/train.main` (the reference's own resume arch: checkpoints every
-# 2 steps, a resume from step 2), then `make_train_step` on batches from a
-# `PS3DataPlane` for each arch below at full width: arch → (layers
-# trained, None whole; the AdamW state dtype).  The MoE cuts take int8
-# states (f32 states of deepseek's cut would be about 63 GB), whose
-# training diverges (ROADMAP.md § 3): they get no resume or descent
-# check.  recurrentgemma-9b's and internvl2-26b's cuts take bf16 states:
-# an update holds the old and the new moments (f32: 2 x 21.6 GB for the
-# hybrid's 2.7 B parameters, beside its 5.4 GB of weights and gradients)
+# 2 steps, a resume from step 2; the launcher keeps the reference
+# launcher's remat=False and one microbatch), then `make_train_step` on
+# batches from a `PS3DataPlane` for each arch below at full width, under
+# its full config's `steps.dryrun_train_options` (the reference dry run's
+# state dtype, microbatches, accumulator and remat): arch → layers
+# trained (None: whole).  The MoE cuts take int8 states, whose training
+# diverges (ROADMAP.md § 3): they get no resume or descent check.
 RESUME_ARCH = "mamba2-130m"
 RESUME_STEPS, RESUME_AT = 4, 2
 FAMILY_TRAIN = {
-    "recurrentgemma-9b": (3, "bfloat16"),  # one pattern unit: RG-LRU, RG-LRU, local MQA
-    "mixtral-8x22b": (1, "int8"),  # the window and the 8 experts
-    "deepseek-v2-236b": (2, "int8"),  # the dense lead layer and one MoE layer (MLA)
-    "whisper-small": (None, "float32"),  # 12 encoder and 12 decoder layers
-    "internvl2-26b": (2, "bfloat16"),  # the 256-position image prefix
+    "recurrentgemma-9b": 3,  # one pattern unit: RG-LRU, RG-LRU, local MQA
+    "mixtral-8x22b": 1,  # the window and the 8 experts
+    "deepseek-v2-236b": 2,  # the dense lead layer and one MoE layer (MLA)
+    "whisper-small": None,  # 12 encoder and 12 decoder layers
+    "internvl2-26b": 2,  # the 256-position image prefix
+    RESUME_ARCH: None,  # its (b) runs on the resume run's model
 }
 FAMILY_STEPS = 3
 # (b)'s sequence for the cuts whose CPU side would be slow at 128 tokens
@@ -3407,6 +3424,23 @@ DIST_REL_ERR = 0.02  # the reference's int8 bound on a leaf (tests/test_substrat
 # whose 12 bf16 encoder layers over 1,500 frames leave the last one's wk
 # gradient 7.2e-2 apart; in f32 the two agree to 5e-4 or better
 TRAIN_F32_CHECK = F32_CHECK + ("encdec",)
+# (e): one step under the dry-run options against one under
+# TrainOptions(remat=False), card against card, each gradient leaf in
+# relative L2.  The reference's own gap between these two option sets on
+# the smoke configs (bf16, a batch of 8 rows), under check (e)'s
+# conditions, reaches 6.3e-3 (internvl-smoke's wk; mixtral-smoke 4.5e-3,
+# deepseek-smoke 5.5e-3; the port's 2.5e-3 to 5.9e-3): rounding alone,
+# each microbatch's gradients rounded to bf16 and summed in the
+# accumulator.  Held at about three times that
+# (`tests/test_torch_options_gap.py` re-derives it).  The conditions:
+# equal loss weights and, for the MoE, the no-drop capacity without the
+# load-balance term (`options_cfg`); otherwise the two option sets
+# compute different functions in both packages (each microbatch
+# normalises its own loss weights, and the capacity and the load-balance
+# loss follow each call's tokens: the reference's gap on the plane's
+# weighted rows is 0.35 for internvl-smoke, 0.73 for mixtral-smoke)
+TRAIN_OPTIONS_REL_L2 = 2e-2
+REMAT_ARCH = "internvl2-26b"  # (e) also prints remat's own gap on this arch
 
 
 def train_grads(model, batch, force=None) -> tuple:
@@ -3578,14 +3612,128 @@ def resume_path(card: str, root: str) -> dict:
     return launches
 
 
+def options_cfg(cfg):
+    """Check (e)'s config: the MoE at the no-drop capacity and without
+    the load-balance term, where microbatches change no function (see
+    ``TRAIN_OPTIONS_REL_L2``); any other config as it is."""
+    if not cfg.is_moe:
+        return cfg
+    return dataclasses.replace(no_drop(cfg), router_aux_coef=0.0)
+
+
+@contextlib.contextmanager
+def same_routing(topts, plan: dict, logits: dict, apart: list):
+    """`moe.route` made to pick, for each MoE layer (keyed by its module),
+    the expert ids ``plan`` holds for the whole batch, sliced to the
+    microbatch of the call (with remat each microbatch routes twice: its
+    forward, and the recompute in its backward).  Each token whose own
+    top k differs is appended to ``apart``, and its router logits must
+    agree with ``logits`` (the plain run's) at ``LM_TOL``: a near tie."""
+    import torch
+
+    from repro_torch.models import moe
+
+    real_route, seen = moe.route, {}
+
+    def routed(p, xt, cfg):
+        out_logits, probs, _, own = real_route(p, xt, cfg)
+        c = seen[id(p)] = seen.get(id(p), -1) + 1
+        rows = slice((c // (2 if topts.remat else 1)) * xt.shape[0],
+                     (c // (2 if topts.remat else 1) + 1) * xt.shape[0])
+        idx = plan[id(p)][rows]
+        if not (topts.remat and c % 2):  # a forward, not its recompute
+            with torch.no_grad():  # saves nothing for the backward: the recompute must match
+                diff = (own.sort(dim=-1).values != idx.sort(dim=-1).values).any(dim=-1)
+                a, b = out_logits.detach()[diff], logits[id(p)][rows][diff]
+                if not bool(((a - b).abs() <= LM_TOL["atol"] + LM_TOL["rtol"] * b.abs()).all()):
+                    raise AssertionError(f"(e): tokens routed apart from router logits beyond "
+                                         f"LM_TOL: {a.tolist()} against {b.tolist()}")
+                apart.append(int(diff.sum()))
+        gates = torch.gather(probs, 1, idx)
+        return out_logits, probs, gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9), idx
+
+    with mock.patch.object(moe, "route", routed):
+        yield
+
+
+def options_gap(model, batch: dict, topts, remat_gap: bool) -> str:
+    """(e): `steps.make_grad_fn` under ``topts`` (the dry-run options)
+    against it under ``TrainOptions(remat=False)`` on the same weights
+    and ``batch`` (equal loss weights), card against card: the loss and
+    every gradient leaf at ``TRAIN_OPTIONS_REL_L2``; with ``remat_gap``,
+    ``topts`` with remat against ``topts`` without, printed on its own
+    (remat changes no arithmetic: bit-equal on the CPU).  An MoE cut's
+    microbatched runs take the plain run's routing (`same_routing`): a
+    batch of 8 rows and one of 1 round the router's inputs apart, and
+    near ties then route tokens to other experts (``ROADMAP.md`` § 3);
+    the tokens routed apart are counted."""
+    import torch
+
+    from repro_torch.models import lm, moe
+    from repro_torch.train import steps, tree
+
+    cfg = options_cfg(model.cfg)
+    paths = list(tree.flatten(lm.param_tree(model)))
+    plan, logits, apart = {}, {}, []
+    real_route = moe.route
+
+    def record(p, xt, cfg_):
+        out = real_route(p, xt, cfg_)
+        logits[id(p)], plan[id(p)] = out[0].detach(), out[3]
+        return out
+
+    def grads(o, recording=False):
+        with contextlib.ExitStack() as stack:
+            if recording:
+                stack.enter_context(mock.patch.object(moe, "route", record))
+            elif cfg.is_moe:
+                stack.enter_context(same_routing(o, plan, logits, apart))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, _, g = steps.make_grad_fn(cfg, o)(model, batch)
+            torch.cuda.synchronize()
+        return float(loss), dict(zip(paths, g)), time.perf_counter() - t
+
+    loss_p, plain, t_p = grads(steps.TrainOptions(remat=False), recording=True)
+    loss_d, dry, t_d = grads(topts)
+    worst, rel = grad_gap(dry, plain)
+    del plain
+    routing = ""
+    if cfg.is_moe:
+        tokens = sum(x.shape[0] for x in plan.values())
+        routing = (f"; the microbatches on the plain run's routing, {sum(apart)} of {tokens} "
+                   f"token-layers apart at near ties")
+    text = (f"(e) options: {topts.num_microbatches} microbatch(es), remat, a {topts.accum_dtype} "
+            f"accumulator ({t_d * 1e3:.2f} ms) against one batch without remat ({t_p * 1e3:.2f} "
+            f"ms), equal loss weights"
+            f"{', no-drop capacity, no load-balance term' if cfg.is_moe else ''}{routing}: "
+            f"loss {loss_d:.6f} vs {loss_p:.6f}; {len(paths)} gradient leaves, worst relative L2 "
+            f"{rel:.4g} ({worst}; at most {TRAIN_OPTIONS_REL_L2:g})")
+    ok = rel <= TRAIN_OPTIONS_REL_L2 and abs(loss_d - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p)
+    if remat_gap:
+        _, norem, t_r = grads(dataclasses.replace(topts, remat=False))
+        worst_r, rel_r = grad_gap(dry, norem)
+        same = sum(torch.equal(dry[k], norem[k]) for k in paths)
+        text += (f"; remat alone ({t_r * 1e3:.2f} ms without): worst relative L2 {rel_r:.4g} "
+                 f"({worst_r}), {same} of {len(paths)} leaves bit-equal")
+        ok &= rel_r <= TRAIN_OPTIONS_REL_L2
+        del norem
+    del dry, plan, logits
+    if not ok:
+        raise AssertionError(f"{model.cfg.name} train options: {text}")
+    return text
+
+
 def family_train(arch: str, card: str) -> dict:
-    """``[train]`` for ``arch`` at full width on its cut (`FAMILY_TRAIN`):
-    a `PS3DataPlane` on the card over a token store of the arch's vocab,
-    seeded random weights drawn on the card (MoE experts at 1/sqrt(fan_in),
-    `fan_in_experts`), ``FAMILY_STEPS`` `make_train_step` steps on the
-    plane's batches (with frames or image embeddings drawn as
-    `serve.draw_extras` draws them), every loss finite; then (b) →
-    the launches of the plane and the steps."""
+    """``[train]`` for ``arch`` at full width on its cut (`FAMILY_TRAIN`)
+    under its full config's `steps.dryrun_train_options`: a
+    `PS3DataPlane` on the card over a token store of the arch's vocab,
+    seeded random weights drawn on the card (MoE experts at
+    1/sqrt(fan_in), `fan_in_experts`), (e) on the plane's first batch,
+    then ``FAMILY_STEPS`` `make_train_step` steps on the plane's batches
+    (with frames or image embeddings drawn as `serve.draw_extras` draws
+    them), every loss finite; then (b) → the launches of the plane and
+    the steps."""
     import numpy as np
     import torch
 
@@ -3598,8 +3746,9 @@ def family_train(arch: str, card: str) -> dict:
     from repro_torch.train import optimizer as opt
     from repro_torch.train import steps, tree
 
-    layers, state_dtype = FAMILY_TRAIN[arch]
+    layers = FAMILY_TRAIN[arch]
     full = get_config(arch)
+    state_dtype, topts = steps.dryrun_train_options(full)
     cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
     dev = ExecOptions().torch_device()
     torch.cuda.empty_cache()
@@ -3616,17 +3765,26 @@ def family_train(arch: str, card: str) -> dict:
     model = lm.init_params(cfg, torch.Generator(dev).manual_seed(0))
     if cfg.is_moe:
         fan_in_experts(model)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+
+    batches = [{**train.batch_tensors(batch, dev),
+                **serve.draw_extras(cfg, np.random.default_rng((0, i)), TRAIN_BATCH, dev)}
+               for i, batch in enumerate(plane.batches(TRAIN_BATCH, FAMILY_STEPS, seed=0))]
+    check_e = options_gap(model, {k: v for k, v in batches[0].items() if k != "loss_weights"},
+                          topts, remat_gap=arch == REMAT_ARCH)
+    peak_e = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
     params = lm.param_tree(model)
     ocfg = opt.AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=10, total_steps=FAMILY_STEPS,
                            state_dtype=state_dtype)
     state = opt.init_state(ocfg, params)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t
-    step = steps.make_train_step(cfg, ocfg, steps.TrainOptions(remat=False))
+    state_b = sum(x.numel() * x.element_size() for x in tree.leaves(state))
+    step = steps.make_train_step(cfg, ocfg, topts)
     losses, step_s = [], []
-    for i, batch in enumerate(plane.batches(TRAIN_BATCH, FAMILY_STEPS, seed=0)):
-        data = {**train.batch_tensors(batch, dev),
-                **serve.draw_extras(cfg, np.random.default_rng((0, i)), TRAIN_BATCH, dev)}
+    for data in batches:
         torch.cuda.synchronize()
         t = time.perf_counter()
         model, state, metrics = step(model, state, data)
@@ -3639,29 +3797,35 @@ def family_train(arch: str, card: str) -> dict:
     if not np.isfinite(losses).all():
         raise AssertionError(f"{cfg.name}: non-finite losses {losses}")
     b, s = TRAIN_BATCH, store.tokens.shape[2] - 1
-    state_b = sum(x.numel() * x.element_size() for x in tree.leaves(state))
     n_moe = sum(blk.kind == "moe" for blk in model.blocks)
-    extras = "".join(f", {k} {tuple(v.shape)}" for k, v in data.items()
+    extras = "".join(f", {k} {tuple(v.shape)}" for k, v in batches[0].items()
                      if k in ("enc_frames", "img_embeds"))
     print(f"[train] {cfg.name} ({cfg.family}, {cfg.n_layers} of {full.n_layers} layers"
           f"{f' ({cfg.first_dense_layers} dense lead, {n_moe} MoE)' if cfg.is_moe else ''}"
           f"{f', {cfg.n_enc_layers} encoder layers' if cfg.family == 'encdec' else ''}, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab}), {state_dtype} states, batch {b} x {s} tokens"
-          f"{extras}: token store {t_store:.2f} s, plane {t_plane:.2f} s ({len(plane.shard_ids)} "
-          f"of {store.n_shards} shards), weights drawn on the card {t_init:.2f} s, steps "
-          f"{[round(x * 1e3, 2) for x in step_s]} ms ({b * s / step_s[-1]:.1f} tokens/s at the "
-          f"last), loss first {losses[0]:.6f} last {losses[-1]:.6f}; parameters "
-          f"{lm.param_bytes(model)} bytes, optimizer state {state_b} bytes; max_memory_allocated "
-          f"{peak - before} bytes above the {before} the earlier phases hold; launches "
+          f"{cfg.d_model}, vocab {cfg.vocab}), the dry-run options of the full config: "
+          f"{state_dtype} states, {topts.num_microbatches} microbatch(es), remat "
+          f"{topts.remat}, a {topts.accum_dtype} accumulator; batch {b} x {s} tokens{extras}: "
+          f"token store {t_store:.2f} s, plane {t_plane:.2f} s ({len(plane.shard_ids)} of "
+          f"{store.n_shards} shards), weights drawn on the card {t_init:.2f} s, steps "
+          f"{[round(x * 1e3, 2) for x in step_s]} ms (warm {np.mean(step_s[1:]) * 1e3:.2f} ms, "
+          f"{b * s / step_s[-1]:.1f} tokens/s at the last), loss first {losses[0]:.6f} last "
+          f"{losses[-1]:.6f}; parameters {lm.param_bytes(model)} bytes, optimizer state "
+          f"{state_b} bytes (updated in place); max_memory_allocated {peak - before} bytes "
+          f"above the {before} the earlier phases hold ((e): {peak_e - before}); launches "
           f"{json.dumps(launches, sort_keys=True)}; card {card}", flush=True)
-    del state, params, step, data
-    seq = FAMILY_CHECK_SEQ.get(arch, s)
-    batch = {k: v[:, :seq] if k in ("tokens", "targets") else v
-             for k, v in next(plane.batches(1, 1, seed=1)).items()}
-    batch.update(serve.draw_extras(cfg, np.random.default_rng(1), 1, "cpu"))
-    print(f"[check] train {cfg.name}: losses {[round(x, 6) for x in losses]} finite; (b) the "
-          f"trained {cfg.n_layers} layers, batch 1 x {seq} tokens, card vs CPU: "
-          f"{family_card_vs_cpu(model, batch, dev)}", flush=True)
+    del state, params, step, batches, data
+    if arch == RESUME_ARCH:
+        check_b = "(b) on the resume run's model above"
+    else:
+        seq = FAMILY_CHECK_SEQ.get(arch, s)
+        batch = {k: v[:, :seq] if k in ("tokens", "targets") else v
+                 for k, v in next(plane.batches(1, 1, seed=1)).items()}
+        batch.update(serve.draw_extras(cfg, np.random.default_rng(1), 1, "cpu"))
+        check_b = (f"(b) the trained {cfg.n_layers} layers, batch 1 x {seq} tokens, card vs "
+                   f"CPU: {family_card_vs_cpu(model, batch, dev)}")
+    print(f"[check] train {cfg.name}: losses {[round(x, 6) for x in losses]} finite; "
+          f"{check_b}; {check_e}", flush=True)
     del model, plane
     torch.cuda.empty_cache()
     return launches
@@ -3784,13 +3948,99 @@ def dist_checks(model, plane, ckpt: str, step: int, plain: dict) -> str:
     return text
 
 
+# --------------------------------------------------------------------------
+# phase 13: the examples' twins on the card
+# --------------------------------------------------------------------------
+EXAMPLES = ("quickstart_torch", "aqp_service_torch", "serve_lm_torch", "train_lm_torch")
+PS3_EXAMPLES = ("quickstart_torch", "aqp_service_torch")  # each must launch kernels
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the folder is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "examples",
+                                                                     name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def example_outputs(name: str, out) -> str:
+    """The key outputs of one twin's ``main`` return value."""
+    import numpy as np
+
+    if name == "quickstart_torch":
+        return (f"read {out['read']} partitions at a budget of {out['budget']}, avg rel err "
+                f"{out['errors']['avg_rel_err']:.4f}, missed groups "
+                f"{out['errors']['missed_groups']:.4f} (uniform sampling "
+                f"{out['uniform']['avg_rel_err']:.4f})")
+    if name == "aqp_service_torch":
+        modes = {m: out["modes"].count(m) for m in sorted(set(out["modes"]))}
+        return (f"{len(out['reads'])} answers, mean reads {np.mean(out['reads']):.2f}, mean err "
+                f"{np.mean(out['errors']):.4f}, modes {modes}")
+    if name == "serve_lm_torch":
+        b, g = out.served.tokens.shape[0], out.served.tokens.shape[1] - 1
+        return (f"{out.cfg.name}, prefill {out.served.prefill_s * 1e3:.2f} ms, decode "
+                f"{out.served.decode_s * 1e3:.2f} ms ({b * g / out.served.decode_s:.1f} "
+                f"tokens/s)")
+    return f"{len(out)} steps, loss first {out[0]:.6f} last {out[-1]:.6f}"
+
+
+def examples_path(card: str) -> dict:
+    """Phase 13: each twin of `examples/` through its ``main()`` with its
+    reference's own arguments, on the card (their default device), its
+    output and an ``[example]`` line (wall, key outputs, launches) →
+    every twin's launches summed."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    totals = {}
+    try:
+        for name in EXAMPLES:
+            module = load_example(name)
+            argv = ["--ckpt-dir", os.path.join(root, "ckpt")] if name == "train_lm_torch" else []
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            _build.LAUNCHES.reset()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = module.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = launches_of(())  # which kernels a twin runs depends on its data
+            for line in out.getvalue().splitlines():
+                print(f"[example] {name}: {line}", flush=True)
+            if name in PS3_EXAMPLES and not sum(launches.values()):
+                raise AssertionError(f"{name}: no kernel launched")
+            if name == "train_lm_torch" and not np.isfinite(result).all():
+                raise AssertionError(f"{name}: non-finite losses {result}")
+            print(f"[example] {name} main({' '.join(argv)}): {wall:.2f} s; "
+                  f"{example_outputs(name, result)}; launches "
+                  f"{json.dumps(launches, sort_keys=True)}; card {card}", flush=True)
+            for k, n in launches.items():
+                totals[k] = totals.get(k, 0) + n
+            del result, module
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return totals
+
+
 class LMPhases:
-    """Phases 11 and 12 in a second process on the same card, started after
+    """Phases 11 to 13 in a second process on the same card, started after
     phase 3 (whose kernel times it would disturb) and run beside phases 4
     to 10: both sides are host-bound (the card idles most of the time), so
     the run takes about the longer side instead of their sum.  Each
-    process counts its own launches; the second writes its two phases'
-    counts to a file, and its output is printed when it is joined."""
+    process counts its own launches; the second writes its phases' counts
+    to a file, and its output is printed when it is joined."""
 
     def __init__(self, card: str):
         import tempfile
@@ -3804,7 +4054,7 @@ class LMPhases:
                 [sys.executable, os.path.abspath(__file__), "--lm-phases", self.result,
                  "--card", card, "--parent", str(os.getpid())], stdout=out, cwd=ROOT)
         self.shown = False
-        print(f"[lm] phases 11 and 12 started in process {self.proc.pid} beside phases 4 to 10",
+        print(f"[lm] phases 11 to 13 started in process {self.proc.pid} beside phases 4 to 10",
               flush=True)
 
     def show(self) -> None:
@@ -3814,23 +4064,23 @@ class LMPhases:
                 sys.stdout.write(f.read())
             sys.stdout.flush()
 
-    def join(self) -> tuple[dict, dict]:
+    def join(self) -> tuple[dict, dict, dict]:
         """Wait for the second process → (the --aqp launches, the training
-        launches); raises if it failed."""
+        launches, the examples' launches); raises if it failed."""
         import torch
 
         t = time.time()
         rc = self.proc.wait()
         self.show()
         if rc != 0:
-            raise RuntimeError(f"phases 11 and 12 failed in their process (exit code {rc})")
+            raise RuntimeError(f"phases 11 to 13 failed in their process (exit code {rc})")
         with open(self.result) as f:
             res = json.load(f)
-        print(f"[lm] phases 11 and 12 ended {res['ended'] - self.t0:.2f} s after their process "
+        print(f"[lm] phases 11 to 13 ended {res['ended'] - self.t0:.2f} s after their process "
               f"started, {max(0.0, res['ended'] - t):.2f} s after phase 10 ended; phases 1 to "
               f"10 peaked at max_memory_allocated {torch.cuda.max_memory_allocated()}, "
               f"max_memory_reserved {torch.cuda.max_memory_reserved()} bytes", flush=True)
-        return res["aqp"], res["train"]
+        return res["aqp"], res["train"], res["examples"]
 
     def stop(self) -> None:
         import shutil
@@ -3843,7 +4093,7 @@ class LMPhases:
 
 
 def lm_phases_main(args) -> int:
-    """Phases 11 and 12 alone (the second process of `LMPhases`)."""
+    """Phases 11 to 13 alone (the second process of `LMPhases`)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3861,8 +4111,10 @@ def lm_phases_main(args) -> int:
     clock.done(11, "lm")
     trained = train_path(args.card)
     clock.done(12, "train")
+    examples = examples_path(args.card)
+    clock.done(13, "examples")
     with open(args.lm_phases, "w") as f:
-        json.dump({"aqp": aqp, "train": trained, "ended": time.time()}, f)
+        json.dump({"aqp": aqp, "train": trained, "examples": examples, "ended": time.time()}, f)
     return 0
 
 
@@ -3968,8 +4220,8 @@ def main(argv=None) -> int:
         clock.done(9, "serve")
         life = lifecycle_path(sess, held_out, stream_keys, args)
         clock.done(10, "lifecycle")
-        aqp, trained = lm.join()
-        clock.done("11-12", "wait")
+        aqp, trained, examples = lm.join()
+        clock.done("11-13", "wait")
     finally:
         lm.stop()
     for name, rec in records.items():
@@ -3980,10 +4232,11 @@ def main(argv=None) -> int:
         rec["lifecycle_launches"] = life.get(name, 0)
         rec["aqp_launches"] = aqp.get(name, 0)
         rec["train_launches"] = trained.get(name, 0)
+        rec["example_launches"] = examples.get(name, 0)
         rec["launches"] = (rec["session_launches"] + rec["plane_launches"]
                            + rec["stream_launches"] + rec["serve_launches"]
                            + rec["lifecycle_launches"] + rec["aqp_launches"]
-                           + rec["train_launches"])
+                           + rec["train_launches"] + rec["example_launches"])
 
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(f"[time] total {time.perf_counter() - clock.t0:.2f}", flush=True)

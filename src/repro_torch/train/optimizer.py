@@ -2,8 +2,11 @@
 
 The reference's `repro.train.optimizer`, on trees of tensors
 (`repro_torch.train.tree`; `repro_torch.models.lm.param_tree` gives a
-model's).  Parameters are updated in place: the model's own tensors,
-which `apply_updates` returns; the state is a new tree each step.
+model's).  Parameters and state are updated in place: the model's own
+tensors and the state's, which `apply_updates` returns.  The passed
+state is consumed, as the reference's dry run donates it
+(``donate_argnums=(0, 1)``): an update never holds the old and the new
+moments at once.
 
 `state_dtype`:
   * "float32"  — reference Adam moments.
@@ -21,8 +24,8 @@ The reference maps a layer-stacked leaf layer by layer (`lax.map`) to
 bound its f32 temporaries; the port holds one tensor per block, and
 updates a leaf of more than ``UPDATE_CHUNK`` elements in slices along
 its first axis (an expert stack, an embedding), each slice's moments
-written into the new state in place.  Every op is elementwise or over
-the last axis (the int8 scale), so the math is the same.
+written into the state's slice.  Every op is elementwise or over the
+last axis (the int8 scale), so the math is the same.
 """
 from __future__ import annotations
 
@@ -112,8 +115,14 @@ def _global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params, grads, state):
-    """One AdamW step: ``params`` updated in place → (params, new_state,
-    metrics {"grad_norm", "lr"})."""
+    """One AdamW step: ``params`` and ``state`` updated in place →
+    (params, state, metrics {"grad_norm", "lr"}).
+
+    The state is consumed: its ``m``/``v`` tensors (an int8 leaf's ``q``
+    and ``scale`` too) and its ``step`` take the new values in their own
+    storage, whole leaves and ``UPDATE_CHUNK`` slices alike, and the
+    returned state is the same dict.  A caller that keeps the old state
+    copies it first."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     gnorm = _global_norm(grads)
@@ -126,6 +135,9 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
     b1c = 1 - cfg.b1 ** stepf
     b2c = 1 - cfg.b2 ** stepf
 
+    def store(dst, x):  # the new moment, in the state's dtype, into ``dst``
+        tree_map(lambda d, s: d.copy_(s), dst, _to_state_dtype(x, cfg.state_dtype))
+
     def block(p, g, m_s, v_s):
         g = g.float() * scale
         m = _from_state_dtype(m_s, cfg.state_dtype, p.shape)
@@ -137,25 +149,18 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
         pf = p.float()
         pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf)
         p.copy_(pf)
-        return _to_state_dtype(m, cfg.state_dtype), _to_state_dtype(v, cfg.state_dtype)
+        store(m_s, m)
+        store(v_s, v)
 
     def upd(p, g, m_s, v_s):
         if p.dim() < 2 or p.numel() <= UPDATE_CHUNK:
-            return block(p, g, m_s, v_s)
+            block(p, g, m_s, v_s)
+            return
         rows = max(1, UPDATE_CHUNK // p[0].numel())
-        new = None
         for i in range(0, p.shape[0], rows):
             sl = slice(i, i + rows)
-            part = block(p[sl], g[sl], tree_map(lambda s: s[sl], m_s),
-                         tree_map(lambda s: s[sl], v_s))
-            if new is None:  # the new moments, of the state's shapes and dtypes
-                new = tree_map(lambda s, t: t.new_empty((p.shape[0],) + tuple(t.shape[1:])),
-                               (m_s, v_s), part)
-            tree_map(lambda dst, src: dst[sl].copy_(src), new, part)
-        return new
+            block(p[sl], g[sl], tree_map(lambda s: s[sl], m_s), tree_map(lambda s: s[sl], v_s))
 
-    out = tree_map(upd, params, grads, state["m"], state["v"])
-    # ``out`` has a (m, v) pair at each parameter's place
-    new_m = tree_map(lambda p, mv: mv[0], params, out)
-    new_v = tree_map(lambda p, mv: mv[1], params, out)
-    return params, {"m": new_m, "v": new_v, "step": step}, {"grad_norm": gnorm, "lr": lr}
+    tree_map(upd, params, grads, state["m"], state["v"])
+    state["step"].copy_(step)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -24,6 +24,9 @@ from repro_torch.backends import ExecOptions
 from repro_torch.core import baselines
 from repro_torch.core.features import FeatureBuilder
 from repro_torch.queries.engine import per_partition_answers_batch
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 HOST = ExecOptions(backend="host")
 

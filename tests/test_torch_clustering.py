@@ -41,6 +41,9 @@ from repro_torch.core import clustering, featsel, outliers
 from repro_torch.core.features import FeatureBuilder
 from repro_torch.kernels import ops
 from repro_torch.queries.engine import per_partition_answers_batch
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 CPU = "cpu"
 

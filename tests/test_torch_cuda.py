@@ -40,6 +40,9 @@ from repro_torch.queries.engine import (
     AnswerStore, EvalCache, per_partition_answers_batch, predicate_mask,
 )
 from repro_torch.queries.generator import WorkloadSpec
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 pytestmark = pytest.mark.cuda
 

@@ -37,6 +37,9 @@ from repro_torch.queries.engine import (
 )
 from repro_torch.queries.generator import WorkloadSpec
 from repro_torch.serving import BatchPicker
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 CPU = ExecOptions(device="cpu", mesh=None)
 MESHES = (1, 2, 8)

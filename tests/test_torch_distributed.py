@@ -61,6 +61,9 @@ from repro_torch.models import lm
 from repro_torch.train import optimizer as opt
 from repro_torch.train import tree
 from repro_torch.train.checkpoint import Checkpointer
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 MESHES = {

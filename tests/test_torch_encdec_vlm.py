@@ -49,6 +49,9 @@ from repro_torch.models import lm
 from repro_torch.train import optimizer as opt
 from repro_torch.train import steps, tree
 from test_torch_lm import TOL, _close, reference_params
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 ARCHS = ("whisper_small", "internvl2_26b")
 B, S, GEN = 2, 12, 3

@@ -26,6 +26,9 @@ from repro_torch.queries import device, engine
 from repro_torch.queries.ir import Aggregate, Clause, Predicate, Query
 
 from test_query_device import edge_queries, edge_table
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 CPU = ExecOptions(device="cpu")
 

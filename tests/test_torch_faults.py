@@ -49,6 +49,9 @@ from repro_torch.faults import (
 from repro_torch.planner import PlannerConfig, QueryPlanner
 from repro_torch.queries import device
 from repro_torch.queries.engine import AnswerStore, EvalCache
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 SEED = int(os.environ.get("CHAOS_SEED", "20240807"))
 HOST = ExecOptions(backend="host")

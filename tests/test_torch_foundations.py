@@ -27,6 +27,9 @@ from repro_torch.data.datasets import DATASETS, make_dataset
 from repro_torch.kernels import ops
 from repro_torch.queries import engine
 from repro_torch.queries.generator import WorkloadSpec
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 

@@ -21,6 +21,9 @@ from repro.kernels import ref as ref_kernels
 from repro_torch.backends import ExecOptions
 from repro_torch.core import funnel, gbdt
 from repro_torch.kernels import tree_hist
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 HOST = ExecOptions(backend="host")
 DEVICE = ExecOptions(device="cpu")

@@ -22,6 +22,9 @@ from repro_torch.core.sketches import build_sketches
 
 from test_ingest_parity import assert_sketches_match
 from test_query_device import edge_table
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 CPU = ExecOptions(device="cpu")
 

@@ -17,6 +17,9 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import ops
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 LOWERINGS = ("xla-ref", "pallas")
 SHAPES_PR = [(3, 100), (7, 2050)]  # rows % 128 != 0, one and several tiles

@@ -53,6 +53,9 @@ from repro_torch.queries.ir import Aggregate
 
 import lifecycle_machine as ref_machine
 from lifecycle_machine import CRASH_POINTS, ops_from_seed
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 pytestmark = pytest.mark.lifecycle
 

@@ -52,6 +52,9 @@ from repro_torch import carry, configs
 from repro_torch.models import config, layers, lm
 from repro_torch.train import steps
 from test_torch_moe import PortRouting, ReferenceRouting, flipped_tokens
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 DENSE = ("qwen1_5_0_5b", "yi_6b", "llama3_405b")
 MOE = ("mixtral_8x22b", "deepseek_v2_236b")

@@ -39,6 +39,9 @@ from repro.models import mla as ref_mla
 from repro.models import moe as ref_moe
 from repro_torch import carry, configs
 from repro_torch.models import mla, moe
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 TOL = dict(rtol=5e-2, atol=5e-2)  # `tests/test_arch_smoke.py::test_decode_matches_forward`
 BF16_STEP = 2.0 ** -7  # one bf16 step relative to the value (8 significant bits)

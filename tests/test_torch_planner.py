@@ -38,6 +38,9 @@ from repro_torch.planner.planner import _merge_raw
 from repro_torch.queries.engine import AnswerStore, per_partition_answers
 from repro_torch.queries.generator import WorkloadSpec
 from repro_torch.queries.ir import Aggregate, Predicate, Query
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 HOST = ExecOptions(backend="host")
 DEVICE = ExecOptions(device="cpu")

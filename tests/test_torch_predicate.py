@@ -29,6 +29,9 @@ from repro_torch import carry
 from repro_torch.backends import ExecOptions
 from repro_torch.kernels import ops, predicate
 from repro_torch.queries import device, engine
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 CPU = ExecOptions(device="cpu")
 

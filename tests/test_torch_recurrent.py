@@ -44,6 +44,9 @@ from repro.models import rglru as ref_rglru
 from repro.models import ssd as ref_ssd
 from repro_torch import carry, configs
 from repro_torch.models import layers, rglru, ssd
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 BF16_STEP = 2.0 ** -7  # one bf16 step relative to the value (8 significant bits)
 OUT_TOL = dict(rtol=2 * BF16_STEP, atol=1e-2)

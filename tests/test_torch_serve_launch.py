@@ -34,6 +34,9 @@ from repro.train import steps as ref_steps
 from repro_torch import carry
 from repro_torch.configs import get_smoke
 from repro_torch.launch import serve
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 RTOL = ATOL = 5e-2  # `tests/test_arch_smoke.py::test_decode_matches_forward`
 

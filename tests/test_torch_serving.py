@@ -54,6 +54,9 @@ from repro_torch.queries.engine import AnswerStore, per_partition_answers, query
 from repro_torch.queries.generator import WorkloadSpec
 from repro_torch.serving import BatchPicker, FrontDoor, FrontDoorConfig, TokenBucket
 from repro_torch.serving.engine import pick_stream
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 SEED = int(os.environ.get("CHAOS_SEED", "20240807"))
 HOST = ExecOptions(backend="host", device="cpu")  # KMeans picks on the CPU too

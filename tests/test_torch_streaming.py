@@ -51,6 +51,9 @@ from repro_torch.queries.engine import (
 )
 from repro_torch.queries.generator import WorkloadSpec
 from repro_torch.queries.ir import Aggregate, Clause, Predicate, Query
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 CPU = ExecOptions(device="cpu")
 OPTIONS = {"host": CPU.replace(backend="host"), "device": CPU}

@@ -38,6 +38,9 @@ from repro_torch.data import tokens
 from repro_torch.train import optimizer as opt
 from repro_torch.train.tree import leaves
 from repro_torch.train.checkpoint import Checkpointer
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 PLANE = dict(n_shards=32, seqs_per_shard=32, seq_len=33, vocab=128, seed=1)  # the reference test's
 PLANE_OPTS = dict(budget_frac=0.3, num_train_queries=12, seed=1, backend="host")

@@ -71,6 +71,9 @@ from repro_torch.train import steps
 from repro_torch.train import tree
 from test_torch_lm import _first_flips, reference_params
 from test_torch_moe import PortRouting, ReferenceRouting, force_routing
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 BF16_STEP = 2.0 ** -7  # one bf16 step relative to the value (8 significant bits)
 LOSS_RTOL = 1e-3

@@ -46,6 +46,9 @@ from repro_torch.errors import InjectedCrash, StaleStateError, WalCorruptError
 from repro_torch.faults import FaultInjector, FaultPolicy
 from repro_torch.planner import QueryPlanner
 from repro_torch.queries.generator import WorkloadSpec
+import torch_threads
+
+torch_threads.cap_under_xdist()
 
 pytestmark = pytest.mark.chaos
 
