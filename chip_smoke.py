@@ -177,7 +177,23 @@ Phases, each fatal on failure:
    ``main()`` with their references' own arguments on the card:
    ``[example]`` their output, wall, key outputs and kernel launches (the
    two PS³ twins must launch kernels);
-14. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
+14. (in a third process, which starts its work when phases 11 to 13 have
+   ended, beside phases 4 to 10: its fake process group never meets
+   phase 12's NCCL group) the dry run
+   (`repro_torch.launch.dryrun`): ``[dryrun]`` (a) phase 11's
+   qwen1.5-0.5b decode step at its serving shape and phase 12's warm
+   mamba2-130m train step under its dry-run options, each run once on
+   the card with seeded random weights under `FlopCounterMode` and traced
+   as a `lower_cell` row on a (1, 1) mesh of fake CUDA tensors: the
+   row's FLOPs equal the count exactly and its ``argument_bytes`` the
+   live model, state and inputs; its bound terms (the memory term the
+   bytes floor, `roofline.floor_bytes`) and `roofline.step_bound`,
+   printed after phase 10 beside the step phase 11 or 12 measured and
+   their ratio, and beside the time the eager step's own op-by-op bytes
+   would take; (b) qwen1.5-0.5b ``decode_32k`` on the fake 16 × 16
+   group (the card's torch release's `DTensor` partitioning), its row
+   and trace time;
+15. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
    Each kernel's ``session_launches``, ``plane_launches``,
    ``stream_launches``, ``serve_launches``, ``lifecycle_launches``,
    ``aqp_launches``, ``train_launches`` and ``example_launches`` count
@@ -188,9 +204,9 @@ Phases, each fatal on failure:
    (every arch's run).
 
 A ``[time] phase N <name> <s>`` line follows every phase (phases 11 to
-13 on their own process's clock, then ``[time] phase 11-13 wait`` on the
-first's); ``[reduced]`` lines list what was cut to keep the run inside
-its time limit.
+13 and 14 on their own processes' clocks, then ``[time] phase 11-13
+wait`` and ``[time] phase 14 dryrun wait`` on the first's); ``[reduced]``
+lines list what was cut to keep the run inside its time limit.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -288,6 +304,10 @@ def parse_args(argv=None):
     # the second process of phases 11 to 13 (see LMPhases): its result
     # file, the card line phase 1 printed and the first process's pid
     ap.add_argument("--lm-phases", metavar="RESULT_JSON", help=argparse.SUPPRESS)
+    # the third process, phase 14's dry run (see DryRunPhase): its result
+    # file, and the second process's, whose writing it waits for
+    ap.add_argument("--dryrun-phase", metavar="RESULT_JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--after", metavar="RESULT_JSON", help=argparse.SUPPRESS)
     ap.add_argument("--card", help=argparse.SUPPRESS)
     ap.add_argument("--parent", type=int, help=argparse.SUPPRESS)
     return ap.parse_args(argv)
@@ -2803,6 +2823,7 @@ def lm_serve(arch: str, card: str) -> None:
         raise AssertionError(f"{cfg.name}: a second run of the loop gave other tokens")
     parts, nbytes, bound_ms = decode_bound(model, b)
     step_ms = [x.decode_s / gen * 1e3 for x in (s, warm)]
+    MEASURED_MS[f"{cfg.name} decode"] = step_ms[1]
     enc = (f"{cfg.n_enc_layers} encoder layers over {cfg.enc_positions} frames, "
            if cfg.family == "encdec" else "")
     extras = "".join(f", {k} {tuple(v.shape)}" for k, v in run.extras.items())
@@ -3793,6 +3814,7 @@ def family_train(arch: str, card: str) -> dict:
         step_s.append(time.perf_counter() - t)
         losses.append(loss)
     launches = launches_of(TRAIN_KERNELS)
+    MEASURED_MS[f"{cfg.name} train"] = float(np.mean(step_s[1:])) * 1e3
     peak = torch.cuda.max_memory_allocated()
     if not np.isfinite(losses).all():
         raise AssertionError(f"{cfg.name}: non-finite losses {losses}")
@@ -4064,9 +4086,10 @@ class LMPhases:
                 sys.stdout.write(f.read())
             sys.stdout.flush()
 
-    def join(self) -> tuple[dict, dict, dict]:
+    def join(self) -> tuple[dict, dict, dict, dict]:
         """Wait for the second process → (the --aqp launches, the training
-        launches, the examples' launches); raises if it failed."""
+        launches, the examples' launches, the step times phase 14 sets its
+        bounds against); raises if it failed."""
         import torch
 
         t = time.time()
@@ -4080,7 +4103,7 @@ class LMPhases:
               f"started, {max(0.0, res['ended'] - t):.2f} s after phase 10 ended; phases 1 to "
               f"10 peaked at max_memory_allocated {torch.cuda.max_memory_allocated()}, "
               f"max_memory_reserved {torch.cuda.max_memory_reserved()} bytes", flush=True)
-        return res["aqp"], res["train"], res["examples"]
+        return res["aqp"], res["train"], res["examples"], res["measured"]
 
     def stop(self) -> None:
         import shutil
@@ -4090,6 +4113,218 @@ class LMPhases:
             self.proc.wait()
         self.show()
         shutil.rmtree(self.dir, ignore_errors=True)
+
+
+# phase 14: the dry run (`repro_torch.launch.dryrun`) on the card's machine
+MEASURED_MS: dict = {}  # "<arch> decode" / "<arch> train" → phase 11's or 12's warm step
+DRYRUN_DECODE = "qwen1.5-0.5b"  # (a) phase 11's decode step, at its serving shape
+DRYRUN_TRAIN = RESUME_ARCH  # (a) phase 12's warm train step, mamba2-130m whole
+DRYRUN_CELL = ("qwen1_5_0_5b", "decode_32k")  # (b) on the fake 16 x 16 group
+ONE_RANK = {"data": 1, "model": 1}
+
+
+def real_flops(step, *args) -> int:
+    """`FlopCounterMode`'s count of one ``step(*args)`` on the card, after a
+    warm-up call."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    step(*args)
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize()
+    return fc.get_total_flops()
+
+
+def tensor_bytes(*trees) -> int:
+    from repro_torch.train import tree
+
+    return sum(t.numel() * t.element_size() for x in trees for t in tree.leaves(x))
+
+
+def dryrun_steps(dev) -> list:
+    """(a)'s two steps on the card, with seeded random weights and inputs:
+    [(label, arch, ShapeSpec, real FLOPs, live bytes of the model, the
+    state and the inputs)]."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    out = []
+    g = torch.Generator(dev).manual_seed(0)
+    cfg = get_config(DRYRUN_DECODE)
+    max_len = LM_PROMPT + LM_GEN + 8  # launch/serve.py's cache for phase 11's flags
+    model = lm.init_params(cfg, g)
+    cache = lm.init_cache(cfg, LM_BATCH, max_len, dev)
+    tok = torch.randint(0, cfg.vocab, (LM_BATCH, 1), generator=g, device=dev)
+    with torch.no_grad():
+        flops = real_flops(steps.make_serve_step(cfg), model, cache, tok, max_len - 1)
+    out.append((f"{cfg.name} decode", DRYRUN_DECODE,
+                ShapeSpec("serve_decode", "decode", max_len, LM_BATCH), flops,
+                tensor_bytes(lm.param_tree(model), cache, tok)))
+    del model, cache
+
+    cfg = get_config(DRYRUN_TRAIN)
+    state_dtype, topts = steps.dryrun_train_options(cfg)
+    seq = 128  # phase 12's token store: 129-token rows
+    model = lm.init_params(cfg, g)
+    ocfg = opt.AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=10, total_steps=FAMILY_STEPS,
+                           state_dtype=state_dtype)
+    state = opt.init_state(ocfg, lm.param_tree(model))
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_BATCH, seq), generator=g, device=dev)
+             for k in ("tokens", "targets")}
+    batch["loss_weights"] = torch.rand((TRAIN_BATCH,), generator=g, device=dev)
+    flops = real_flops(steps.make_train_step(cfg, ocfg, topts), model, state, batch)
+    out.append((f"{cfg.name} train", DRYRUN_TRAIN,
+                ShapeSpec("family_train", "train", seq, TRAIN_BATCH), flops,
+                tensor_bytes(lm.param_tree(model), state, batch)))
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_path(card: str) -> dict:
+    """Phase 14: (a) each of `dryrun_steps` as a `lower_cell` row on a
+    (1, 1) mesh of fake CUDA tensors, its FLOPs equal to the real step's
+    `FlopCounterMode` count and its ``argument_bytes`` to the live bytes;
+    (b) `DRYRUN_CELL` on the fake 16 x 16 group → {"steps": [(label, row)],
+    "cell": row}."""
+    import torch
+
+    from repro_torch.launch import dryrun, roofline
+
+    t = time.perf_counter()
+    real = dryrun_steps(torch.device("cuda"))
+    t_real = time.perf_counter() - t
+    rows = []
+    for label, arch, spec, flops, live in real:
+        row = dryrun.lower_cell(arch.replace("-", "_").replace(".", "_"), spec.name,
+                                mesh=ONE_RANK, device="cuda", spec=spec, verbose=False)
+        got = row["cost"]["flops"]
+        if got != flops:
+            raise AssertionError(f"[dryrun] {label}: the (1, 1) row counts {got} FLOPs, "
+                                 f"FlopCounterMode {flops} on the card")
+        if row["memory"]["argument_bytes"] != live:
+            raise AssertionError(f"[dryrun] {label}: argument_bytes "
+                                 f"{row['memory']['argument_bytes']} against {live} live")
+        terms = roofline.bound_terms(row)
+        print(f"[dryrun] {label} on a (1, 1) mesh of fake CUDA tensors, batch "
+              f"{spec.global_batch} x {spec.seq_len}, torch {row['torch']}: trace "
+              f"{row['lower_s']} s; FLOPs {got:.0f} = FlopCounterMode on the card; "
+              f"argument_bytes {row['memory']['argument_bytes']} = the live model, state "
+              f"and inputs; bytes floor {roofline.floor_bytes(row):.0f} (arguments read "
+              f"once, outputs written once); the eager step's op-by-op bytes "
+              f"{row['cost']['bytes_accessed']:.0f} ({roofline.terms(row)['memory'] * 1e3:.4f}"
+              f" ms); bound terms "
+              f"{', '.join(f'{k} {v * 1e3:.4f} ms' for k, v in terms.items())}; step_bound "
+              f"{roofline.step_bound(row) * 1e3:.4f} ms; card {card}", flush=True)
+        rows.append((label, row))
+    arch, shape = DRYRUN_CELL
+    cell = dryrun.lower_cell(arch, shape, device="cuda", verbose=False)
+    r = roofline.analyze_row(cell)
+    print(f"[dryrun] {arch} x {shape} on the fake 16 x 16 group (256 ranks), torch "
+          f"{cell['torch']}'s DTensor partitioning: trace {cell['lower_s']} s; terms "
+          f"compute {r['t_compute_s'] * 1e3:.4f} ms, memory (eager op-by-op bytes) "
+          f"{r['t_memory_s'] * 1e3:.4f} ms, collective {r['t_collective_s'] * 1e3:.4f} ms "
+          f"({r['dominant']}); bytes floor {r['t_memory_floor_s'] * 1e3:.4f} ms; step_bound "
+          f"{r['step_bound_s'] * 1e3:.4f} ms ({r['bound_by']}), roofline_frac "
+          f"{r['roofline_frac']:.4f}; row {json.dumps(cell)}", flush=True)
+    print(f"[dryrun] the real steps took {t_real:.2f} s", flush=True)
+    return {"steps": rows, "cell": cell}
+
+
+def dryrun_report(res: dict, measured: dict, card: str) -> None:
+    """Each (a) row's terms and bound beside the step phase 11 or 12
+    measured, and their ratio."""
+    from repro_torch.launch import roofline
+
+    for label, row in res["steps"]:
+        if label not in measured:
+            raise AssertionError(f"[dryrun] no measured step for {label}: {sorted(measured)}")
+        bound_ms = roofline.step_bound(row) * 1e3
+        terms = roofline.bound_terms(row)
+        eager_ms = roofline.terms(row)["memory"] * 1e3
+        print(f"[dryrun] {label}: measured {measured[label]:.4f} ms a step (phase "
+              f"{11 if label.endswith('decode') else 12}, warm) against step_bound "
+              f"{bound_ms:.4f} ms ({max(terms, key=terms.get)}; its memory term the bytes "
+              f"floor): measured / bound {measured[label] / bound_ms:.2f}; the eager step's "
+              f"own op-by-op bytes would take {eager_ms:.4f} ms (measured / that "
+              f"{measured[label] / eager_ms:.2f}); card {card}", flush=True)
+
+
+class DryRunPhase:
+    """Phase 14 in a third process: its fake process group must never meet
+    phase 12's NCCL group, which lives in the second.  It starts its work
+    when the second process has written its result, so that at most two
+    of the three share the host at once, and ends long before phase 10.
+    Its output is printed when it is joined."""
+
+    def __init__(self, card: str, after: str):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        self.result = os.path.join(self.dir, "rows.json")
+        self.log = os.path.join(self.dir, "stdout.txt")
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dryrun-phase", self.result,
+                 "--after", after, "--card", card, "--parent", str(os.getpid())],
+                stdout=out, cwd=ROOT)
+        self.shown = False
+        print(f"[dryrun] phase 14 started in process {self.proc.pid}, to run after phases "
+              f"11 to 13", flush=True)
+
+    def show(self) -> None:
+        if not self.shown and os.path.exists(self.log):
+            self.shown = True
+            with open(self.log) as f:
+                sys.stdout.write(f.read())
+            sys.stdout.flush()
+
+    def join(self) -> dict:
+        rc = self.proc.wait()
+        self.show()
+        if rc != 0:
+            raise RuntimeError(f"phase 14 failed in its process (exit code {rc})")
+        with open(self.result) as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.show()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dryrun_phase_main(args) -> int:
+    """Phase 14 alone (the third process of `DryRunPhase`)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+
+    def orphaned():
+        while os.getppid() == args.parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    while not os.path.exists(args.after):
+        time.sleep(1.0)
+    clock = PhaseClock()
+    res = dryrun_path(args.card)
+    clock.done(14, "dryrun")
+    with open(args.dryrun_phase, "w") as f:
+        json.dump(res, f)
+    return 0
 
 
 def lm_phases_main(args) -> int:
@@ -4114,7 +4349,8 @@ def lm_phases_main(args) -> int:
     examples = examples_path(args.card)
     clock.done(13, "examples")
     with open(args.lm_phases, "w") as f:
-        json.dump({"aqp": aqp, "train": trained, "examples": examples, "ended": time.time()}, f)
+        json.dump({"aqp": aqp, "train": trained, "examples": examples, "measured": MEASURED_MS,
+                   "ended": time.time()}, f)
     return 0
 
 
@@ -4136,6 +4372,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.lm_phases:
         return lm_phases_main(args)
+    if args.dryrun_phase:
+        return dryrun_phase_main(args)
     import torch
 
     from repro_torch.data.datasets import make_dataset
@@ -4200,6 +4438,7 @@ def main(argv=None) -> int:
     # the second process
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     lm = LMPhases(card)
+    dry = DryRunPhase(card, lm.result)
     try:
         offline_path(table, queries, args)
         clock.done(4, "offline")
@@ -4220,10 +4459,13 @@ def main(argv=None) -> int:
         clock.done(9, "serve")
         life = lifecycle_path(sess, held_out, stream_keys, args)
         clock.done(10, "lifecycle")
-        aqp, trained, examples = lm.join()
+        aqp, trained, examples, measured = lm.join()
         clock.done("11-13", "wait")
+        dryrun_report(dry.join(), measured, card)
+        clock.done(14, "dryrun wait")
     finally:
         lm.stop()
+        dry.stop()
     for name, rec in records.items():
         rec["session_launches"] = launches.get(name, 0)
         rec["plane_launches"] = plane.get(name, 0)

@@ -351,6 +351,17 @@ def attn_qkv(p, x, cfg, positions, with_rope=True):
     return q, k, v
 
 
+def attn_q(p, x, cfg):
+    """The (B, S, H, hd) queries alone, no rope: a cross-attention's (its
+    keys and values are the encoder's; `attn_qkv` would also project ``x``
+    to keys and values that nothing reads)."""
+    b, s, _ = x.shape
+    q = x @ p.wq
+    if p.bq is not None:
+        q = q + p.bq
+    return q.reshape(b, s, cfg.n_heads, cfg.d_head)
+
+
 def attn_apply(p, x, cfg, *, causal=True, window=0, positions=None):
     """Full-sequence attention (train / prefill). Returns (out, (k, v))."""
     b, s, _ = x.shape
@@ -406,7 +417,7 @@ def cross_attn_apply(p, x, cfg, k, v):
     (B, S_enc, K, hd) keys and values (``attn_qkv(p, enc_out, cfg, None,
     with_rope=False)``): every query over every frame, no rope."""
     b, s, _ = x.shape
-    q = attn_qkv(p, x, cfg, None, with_rope=False)[0]
+    q = attn_q(p, x, cfg)
     o = chunked_attention(q, k, v, causal=False)
     return o.reshape(b, s, cfg.n_heads * cfg.d_head) @ p.wo
 
@@ -418,7 +429,7 @@ def cross_attn_decode(p, x, cfg, k, v):
     weights cast to bf16 before the value product."""
     b = x.shape[0]
     h, hd = cfg.n_heads, cfg.d_head
-    q = attn_qkv(p, x, cfg, None, with_rope=False)[0]
+    q = attn_q(p, x, cfg)
     rep = h // cfg.n_kv_heads
     kt = torch.repeat_interleave(k, rep, dim=2)  # (B, S_enc, H, hd)
     vt = torch.repeat_interleave(v, rep, dim=2)

@@ -291,7 +291,8 @@ def forward_hidden(cfg: ModelConfig, params: LM, tokens, *, img_embeds=None,
     checkpoints each pattern unit: its backward recomputes the unit's
     internals and only the bf16 carries are saved across layers (the
     reference's module flag ``REMAT_UNITS``, held per call here; the
-    leading dense layers run outside the scan there, and unchecked here)."""
+    leading dense layers run outside the scan there, and unchecked here;
+    whisper's decoder, whose scan there takes no remat, neither)."""
     pin_f32_accumulation()
     x = constrain(_embed(cfg, params, tokens, img_embeds), "batch", None, None)
     b, s, _ = x.shape
@@ -301,6 +302,9 @@ def forward_hidden(cfg: ModelConfig, params: LM, tokens, *, img_embeds=None,
         x, *_ = _block_apply(blk, x, cfg, positions=positions)
     lb = zl = torch.zeros((), dtype=torch.float32, device=x.device)
     period = len(cfg.block_pattern)
+    # whisper's decoder units are not checkpointed: the reference's scan
+    # over them (`_scan_decoder_with_cross`) takes no remat
+    remat_units = remat_units and cfg.family != "encdec"
     for u in range(0, len(params.blocks), period):
         args = (cfg, params.blocks[u:u + period], positions, x, lb, zl,
                 params.cross[u:u + period], enc_out)

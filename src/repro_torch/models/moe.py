@@ -86,7 +86,11 @@ def moe_apply(p: MoE, x, cfg):
     b, s, d = x.shape
     t = b * s
     k, e = cfg.top_k, cfg.n_experts
-    xt = x.reshape(t, d)
+    # on a mesh the sequence dim is gathered first (the identity off a
+    # mesh): `DTensor` misplaces the model axis where the backward
+    # unflattens (B·S) to (B, S) with fewer batch rows than data-and-model
+    # ranks
+    xt = constrain(x, "batch", None, None).reshape(t, d)
     logits, probs, gates, idx = route(p, xt, cfg)
 
     # ---- capacity + position-in-expert (sort-based, no T×E tensors)

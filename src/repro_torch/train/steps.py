@@ -83,7 +83,7 @@ def make_grad_fn(cfg: ModelConfig, topts: TrainOptions):
             loss, aux = lm.loss_fn(cfg, model, batch, remat_units=topts.remat)
             grads = list(torch.autograd.grad(loss, leaves))
             return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
-        acc = [torch.zeros(p.shape, dtype=adt, device=p.device) for p in leaves]
+        acc = [torch.zeros_like(p, dtype=adt) for p in leaves]  # a DTensor's placements
         for p in leaves:
             p.grad = None
         hooks = [p.register_post_accumulate_grad_hook(add_into(a))
