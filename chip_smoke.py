@@ -192,7 +192,10 @@ Phases, each fatal on failure:
    their ratio, and beside the time the eager step's own op-by-op bytes
    would take; (b) qwen1.5-0.5b ``decode_32k`` on the fake 16 × 16
    group (the card's torch release's `DTensor` partitioning), its row
-   and trace time;
+   and trace time; (c) qwen1.5-0.5b's and mamba2-130m's ``train_4k`` on
+   the same group, each held to its audit (the FLOPs a device, counted
+   below `DTensor`, equal the placements' shares, computed above it),
+   with its trace time and the torch release;
 15. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
    Each kernel's ``session_launches``, ``plane_launches``,
    ``stream_launches``, ``serve_launches``, ``lifecycle_launches``,
@@ -4120,6 +4123,9 @@ MEASURED_MS: dict = {}  # "<arch> decode" / "<arch> train" → phase 11's or 12'
 DRYRUN_DECODE = "qwen1.5-0.5b"  # (a) phase 11's decode step, at its serving shape
 DRYRUN_TRAIN = RESUME_ARCH  # (a) phase 12's warm train step, mamba2-130m whole
 DRYRUN_CELL = ("qwen1_5_0_5b", "decode_32k")  # (b) on the fake 16 x 16 group
+# (c) on the same group: the cells torch 2.11's own strategies failed (the
+# attention's pad, the embedding's index_put; mamba2's cumsum backward flips)
+DRYRUN_TRAIN_CELLS = (("qwen1_5_0_5b", "train_4k"), ("mamba2_130m", "train_4k"))
 ONE_RANK = {"data": 1, "model": 1}
 
 
@@ -4191,8 +4197,9 @@ def dryrun_path(card: str) -> dict:
     """Phase 14: (a) each of `dryrun_steps` as a `lower_cell` row on a
     (1, 1) mesh of fake CUDA tensors, its FLOPs equal to the real step's
     `FlopCounterMode` count and its ``argument_bytes`` to the live bytes;
-    (b) `DRYRUN_CELL` on the fake 16 x 16 group → {"steps": [(label, row)],
-    "cell": row}."""
+    (b) `DRYRUN_CELL` on the fake 16 x 16 group; (c) each of
+    `DRYRUN_TRAIN_CELLS` there, its FLOPs equal to its audit →
+    {"steps": [(label, row)], "cell": row, "train_cells": [row]}."""
     import torch
 
     from repro_torch.launch import dryrun, roofline
@@ -4233,8 +4240,23 @@ def dryrun_path(card: str) -> dict:
           f"({r['dominant']}); bytes floor {r['t_memory_floor_s'] * 1e3:.4f} ms; step_bound "
           f"{r['step_bound_s'] * 1e3:.4f} ms ({r['bound_by']}), roofline_frac "
           f"{r['roofline_frac']:.4f}; row {json.dumps(cell)}", flush=True)
+    train_cells = []
+    for arch, shape in DRYRUN_TRAIN_CELLS:
+        row = dryrun.lower_cell(arch, shape, device="cuda", verbose=False, audit=True)
+        flops, audit = row["cost"]["flops"], row["audit"]["expected_flops"]
+        if flops != audit:
+            raise AssertionError(f"[dryrun] {arch} x {shape}: {flops} FLOPs a device counted, "
+                                 f"{audit} from the placements")
+        print(f"[dryrun] {arch} x {shape} on the fake 16 x 16 group (256 ranks), torch "
+              f"{row['torch']}: trace {row['lower_s']} s; FLOPs a device {flops:.6g} = the "
+              f"audit from the placements ({audit:.6g}); link bytes "
+              f"{row['collectives']['link_bytes_total']:.6g} in "
+              f"{row['collectives']['num_collectives']} collectives; memory a device "
+              f"{row['memory']['per_device_total'] / 2**30:.2f} GiB; microbatches "
+              f"{row['microbatches']}", flush=True)
+        train_cells.append(row)
     print(f"[dryrun] the real steps took {t_real:.2f} s", flush=True)
-    return {"steps": rows, "cell": cell}
+    return {"steps": rows, "cell": cell, "train_cells": train_cells}
 
 
 def dryrun_report(res: dict, measured: dict, card: str) -> None:

@@ -25,7 +25,11 @@ the reference's keys:
     the eager peak of this trace, not XLA's buffer assignment;
   * ``cost``: ``flops``, ``bytes_accessed``; ``collectives``:
     ``num_collectives`` (calls), ``link_bytes_total``, ``by_kind``;
-    ``collective_ops_sample``; ``lower_s``, the trace's seconds.
+    ``collective_ops_sample``; ``lower_s``, the trace's seconds;
+  * ``microbatches`` (a train step): ``{"n": n, "traced": t}``.  A step
+    of n > 2 microbatches runs two of them and counts the second n − 1
+    times (`_scaled_microbatches`), as the reference's `hlo_stats`
+    counts its microbatch scan's body by its trip count.
 
 The reference's ``cost_analysis_raw`` (XLA's own cost analysis, which
 counts a loop body once) and ``compile_s`` (XLA's compile) have no
@@ -164,41 +168,281 @@ def _select_reduces_masked(original):
     return strategy
 
 
+def _rank0_numel(shape, placements, mesh) -> int:
+    """Rank 0's element count of a tensor of global ``shape`` under
+    ``placements`` (each `Shard` splits its dim, the first ranks taking
+    the ceiling)."""
+    from torch.distributed.tensor import Shard
+
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if type(p) is Shard:
+            local[p.dim] = -(-local[p.dim] // mesh.size(i))
+    return math.prod(local)
+
+
+def _views_keep_numel(original):
+    """``view``'s strategy (``original``), but where the output it gives
+    holds on rank 0 another number of elements than the input it asks
+    for, the input first replicates the inner of two mesh dimensions that
+    shard one tensor dim, until the two agree: `DTensor`'s rule hands
+    every shard of a dim two mesh dimensions split (a merged batch ×
+    heads, over ``pod`` and ``model``) to the first factor of a split,
+    which a factor smaller than the two cannot hold (a microbatch of 2
+    over 4 ranks).  Where the two agree, the strategy is `DTensor`'s
+    own."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSchema, OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
+    def strategy(op_schema):
+        src = op_schema.args_schema[0]
+        shape = tuple(src.shape)
+        target = list(op_schema.args_schema[1])
+        if -1 in target:
+            target[target.index(-1)] = math.prod(shape) // -math.prod(target)
+
+        def agree(s):
+            return (_rank0_numel(shape, s.input_specs[0].placements, s.output_spec.mesh)
+                    == _rank0_numel(target, s.output_spec.placements, s.output_spec.mesh))
+
+        out = OpStrategy([])
+        for s in original(op_schema).strategies:
+            fixed = s
+            while not agree(fixed):
+                placements = list(fixed.input_specs[0].placements)
+                dims = [p.dim if type(p) is Shard else None for p in placements]
+                inner = [i for i, d in enumerate(dims) if d is not None and dims.index(d) < i]
+                if not inner:
+                    raise RuntimeError(f"{op_schema}: no layout the view rule holds")
+                placements[inner[-1]] = Replicate()
+                spec = DTensorSpec(s.output_spec.mesh, tuple(placements),
+                                   tensor_meta=s.input_specs[0].tensor_meta)
+                fixed = original(OpSchema(op_schema.op, (OpStrategy([OpSpec(spec)]),
+                                                         *op_schema.args_schema[1:]),
+                                          op_schema.kwargs_schema)).strategies[0]
+            if fixed is not s:
+                fixed = OpSpec(output_specs=fixed.output_spec, input_specs=fixed.input_specs,
+                               redistribute_cost=[generate_redistribute_costs(
+                                   src, fixed.input_specs[0])])
+            out.strategies.append(fixed)
+        return out
+
+    return strategy
+
+
+def _flip_strategy(op_schema):
+    """``flip(x, dims)``: a mesh dimension that shards one of ``dims``
+    replicates it first (a collective, counted); every other placement
+    passes through, `Partial` (flip is linear) included.  torch 2.11 has
+    no strategy for ``flip``, which autograd runs in ``cumsum``'s
+    backward; 2.13's own shards only the unflipped dims too."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+    from torch.distributed.tensor.placement_types import Partial, _StridedShard
+
+    src = op_schema.args_schema[0]
+    ndim = len(src.strategies[0].output_spec.shape)
+    dims = {d % ndim for d in op_schema.args_schema[1]}
+
+    def through(p):
+        if isinstance(p, (Shard, _StridedShard)):
+            return p.dim not in dims
+        return not p.is_partial() or type(p) is Partial
+
+    out = OpStrategy([])
+    for s in src.strategies:
+        spec = s.output_spec
+        target = DTensorSpec(spec.mesh, tuple(p if through(p) else Replicate()
+                                              for p in spec.placements))
+        out.strategies.append(OpSpec(output_specs=target, input_specs=(target,),
+                                     redistribute_cost=[generate_redistribute_costs(src, target)]))
+    return out
+
+
+# torch 2.13's single-dimension rules (`torch/distributed/tensor/_ops/
+# _matrix_ops.py`, ``constant_pad_nd``; `_tensor_ops.py`, ``index.Tensor``
+# and ``index_put``), which `_strategy_gaps` registers on every release:
+# 2.11's own fail on the production meshes.  Each lists, for one mesh
+# dimension, the placements [output, inputs...] the op computes under (a
+# `_ShardingPlaceholder` a shard in the inputs' own kind; all-replicate is
+# implied), and `DTensor` expands them over the mesh at the least
+# redistribution cost.
+
+
+def _pad_rule(op, args, kwargs):
+    """``constant_pad_nd(x, pad, value)``: shards on unpadded dims pass
+    through; a partial passes where the pad writes what its reduction
+    keeps (sum only for a zero pad)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor._ops.single_dim_strategy import _ShardingPlaceholder as S
+
+    ndim = len(args[0].shape)
+    pad = args[1]
+    padded = {ndim - 1 - i for i in range(len(pad) // 2) if pad[2 * i] or pad[2 * i + 1]}
+    value = args[2] if len(args) > 2 else 0
+    reduce_ops = ("sum", "avg", "max", "min") if not padded or value == 0 else ("avg", "max",
+                                                                              "min")
+    return ([[S(d), S(d)] for d in range(ndim) if d not in padded]
+            + [[Partial(r), Partial(r)] for r in reduce_ops])
+
+
+def _index_rule(op, args, kwargs):
+    """``values[indices]``: the values sharded on a dim no index reads,
+    the indices replicated; or the indices sharded alike on one dim of
+    their broadcast shape, the values replicated; or a linear partial of
+    the values, passed through."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._ops.single_dim_strategy import _ShardingPlaceholder as S
+
+    values, indices = args
+    indexed = [i for i, t in enumerate(indices) if t is not None]
+    metas = [t for t in indices if t is not None]
+    bdim = max(len(m.shape) for m in metas)
+    consecutive = all(b - a == 1 for a, b in zip(indexed, indexed[1:]))
+    insert = indexed[0] if consecutive else 0
+
+    def out_dim(d):
+        return d if d < insert else d + bdim - sum(1 for i in indexed if d > i)
+
+    rules = [[S(out_dim(d)), S(d)] + [Replicate()] * len(indexed)
+             for d in range(len(values.shape)) if d not in indexed]
+    for bd in range(bdim):
+        per = [(bd - (bdim - len(m.shape)), m.shape[bd - (bdim - len(m.shape))])
+               if bd >= bdim - len(m.shape) else (-1, 1) for m in metas]
+        if any(size > 1 for _, size in per):
+            rules.append([S(bd + insert), Replicate()]
+                         + [S(td) if size > 1 else Replicate() for td, size in per])
+    return rules + [[Partial(r), Partial(r)] + [Replicate()] * len(indexed)
+                    for r in ("sum", "avg")]
+
+
+def _index_put_rule(op, args, kwargs):
+    """``index_put(x, indices, values)``: ``x`` and ``values`` sharded
+    alike on a dim no index reads (a size-1 broadcast dim of ``values``
+    replicated), the indices replicated; or ``x``, ``values`` and the
+    output partial sums.  (2.11's own strategy shards ``x`` on dim -1
+    where ``values`` has more dims than ``x``: the embedding's backward.)"""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._ops.single_dim_strategy import _ShardingPlaceholder as S
+
+    x, indices, values = args[:3]
+    indexed = sorted(i for i, t in enumerate(indices) if t is not None)
+    free = [d for d in range(len(x.shape)) if d not in indexed]
+    shapes = [t.shape for t in indices if t is not None]
+    bdim = len(torch.broadcast_shapes(*shapes)) if shapes else 0
+    consecutive = len(indexed) <= 1 or indexed[-1] - indexed[0] + 1 == len(indexed)
+    result_ndim = bdim + len(free)
+    rules = []
+    for i, d in enumerate(free):
+        if consecutive and indexed:
+            vd = d if d < indexed[0] else d - len(indexed) + bdim
+        else:
+            vd = bdim + i
+        vd -= result_ndim - len(values.shape)
+        vp = S(vd) if vd >= 0 and values.shape[vd] != 1 else Replicate()
+        rules.append([S(d), S(d)] + [Replicate()] * len(indexed) + [vp])
+    return rules + [[Partial(), Partial()] + [Replicate()] * len(indexed) + [Partial()]]
+
+
+def _shard_to_partial_in_two(redistribute):
+    """``redistribute`` (`DTensor`'s ``redistribute_local_tensor``), with
+    a move of a shard to a partial sum on a mesh dimension made in two
+    steps: the shard gathered first (an all-gather, counted), then
+    ``redistribute`` on.  torch 2.11's propagator prices such a move and
+    picks it (a residual gradient's ``add`` in llama3-405b's backward on
+    2 × 16 × 16), and neither release's redistribution runs it; 2.13
+    prices it out of reach, so there this never runs."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+
+    def run(local, current, target, *args, **kwargs):
+        whole = tuple(Replicate() if t.is_partial() and not (c.is_partial() or c.is_replicate())
+                      else c for c, t in zip(current.placements, target.placements))
+        if whole != tuple(current.placements):
+            gathered = DTensorSpec(current.mesh, whole, tensor_meta=current.tensor_meta)
+            local = redistribute(local, current, gathered, *args, **kwargs)
+            current = gathered
+        return redistribute(local, current, target, *args, **kwargs)
+
+    return run
+
+
 @contextlib.contextmanager
 def _strategy_gaps():
     """The sharding strategies the step needs where `DTensor`'s own fail,
     registered for the trace and restored after it (the propagator's
-    cache cleared on the way out):
+    cache cleared on the way in and out):
 
     * ``view`` and ``_unsafe_view`` (the folds of a batched matmul):
       `DTensor`'s rule refuses a merge of dims whose inner one is sharded
       (torch 2.11), or shards the merged dim strided (2.13), which its
       planner then searches on a graph; here such a view redistributes
-      its input first, as ``reshape``'s rule does;
-    * ``select`` of a masked partial: `_select_reduces_masked`."""
-    from torch.distributed.tensor import DTensor
+      its input first, as ``reshape``'s rule does (`_views_keep_numel`
+      where the rule would split a dim two mesh dimensions shard wrong);
+    * ``select`` of a masked partial: `_select_reduces_masked`;
+    * ``flip``: `_flip_strategy`, in place of 2.13's single-dimension
+      strategy (which 2.11 lacks, and which the propagator would consult
+      first);
+    * ``constant_pad_nd`` (the attention's pad to whole chunks), ``index``
+      (the embedding's lookup) and ``index_put`` (its backward): 2.13's
+      single-dimension rules (`_pad_rule`, `_index_rule`,
+      `_index_put_rule`), the same as its own there.  2.11's strategy for
+      the pad returns one placement on a mesh of two or three dimensions
+      (its planner then indexes past it), its rule for ``index`` refuses
+      an index whose dim two mesh dimensions shard (the batch over
+      ``pod`` and ``data``), and its ``index_put`` shards on dim -1;
+    * a redistribution's move of a shard to a partial sum:
+      `_shard_to_partial_in_two`."""
+    from torch.distributed.tensor import DTensor, _dispatch, _redistribute
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
     from torch.distributed.tensor._ops import _view_ops
+    from torch.distributed.tensor._ops.single_dim_strategy import _SingleDimStrategyInfo
 
     aten = torch.ops.aten
     prop = DTensor._op_dispatcher.sharding_propagator
     views = (aten.view.default, aten._unsafe_view.default)
-    ops = (*views, aten.select.int)
-    saved = {op: (prop.op_strategy_funcs.get(op), prop.op_to_schema_info.get(op))
-             for op in ops}
+    rules = {aten.constant_pad_nd.default: (_pad_rule, RuntimeSchemaInfo(1)),
+             aten.index.Tensor: (_index_rule, RuntimeSchemaInfo(needs_pytree=True)),
+             **{op: (_index_put_rule, RuntimeSchemaInfo(needs_pytree=True))
+                for op in (aten.index_put.default, aten.index_put_.default,
+                           aten._index_put_impl_.default)}}
+    tables = (prop.op_strategy_funcs, prop.op_to_schema_info,
+              prop.op_single_dim_strategy_funcs, prop.op_to_schema_info_for_single_dim_strategy)
+    saved = {op: [t.get(op) for t in tables]
+             for op in (*views, aten.select.int, aten.flip.default, *rules)}
+    prop.propagate_op_sharding.cache.cache_clear()  # no sharding from before the trace
+    runs = (_dispatch, _redistribute)  # each binds its own name of the function
+    redistribute = _redistribute.redistribute_local_tensor
     try:
+        for module in runs:
+            module.redistribute_local_tensor = _shard_to_partial_in_two(redistribute)
         for op in views:
             _view_ops.register_op_strategy_map(op, torch.Tensor.view,
                                                schema_info=RuntimeSchemaInfo(1),
                                                strict_view=False)
+            prop.op_strategy_funcs[op] = _views_keep_numel(prop.op_strategy_funcs[op])
         prop.register_op_strategy(aten.select.int,
                                   _select_reduces_masked(saved[aten.select.int][0]),
                                   saved[aten.select.int][1])
+        prop.op_single_dim_strategy_funcs.pop(aten.flip.default, None)
+        prop.register_op_strategy(aten.flip.default, _flip_strategy, RuntimeSchemaInfo(1))
+        for op, (rule, info) in rules.items():
+            prop.op_strategy_funcs.pop(op, None)
+            prop.register_single_dim_op_strategy(op, _SingleDimStrategyInfo(rule), info)
         yield
     finally:
-        for op, (fn, info) in saved.items():
-            prop.op_strategy_funcs[op] = fn
-            prop.op_to_schema_info[op] = info
+        for op, entries in saved.items():
+            for table, entry in zip(tables, entries):
+                if entry is None:
+                    table.pop(op, None)
+                else:
+                    table[op] = entry
+        for module in runs:
+            module.redistribute_local_tensor = redistribute
         prop.propagate_op_sharding.cache.cache_clear()
 
 
@@ -257,20 +501,48 @@ class _LocalGaps(TorchDispatchMode):
         return target
 
 
-def _run_step(cfg, shape, mesh, device, topts=None, audit=None):
+def _scaled_microbatches(*counters):
+    """A train step's ``microbatches`` (`train.steps.make_grad_fn`) that
+    runs the first two of ``n``: the first counted once, the second
+    ``n − 1`` times by ``counters`` (`op_stats.scaled`).  Every later
+    microbatch runs as the second does, at the same shapes and with the
+    same carry: the first differs by its carry's first layout (the loss
+    sum's zeros, a plain tensor, become a partial sum there: a ``div``),
+    where XLA's scan holds the carry to one layout from the first trip.
+    The accumulators' allocation before them and the division and the
+    update after them count once; the peak of live bytes is the most of
+    the two, which the later trips repeat."""
+
+    def microbatches(n):
+        yield 0
+        with op_stats.scaled(n - 1, *counters):
+            yield 1
+
+    return microbatches
+
+
+def _run_step(cfg, shape, mesh, device, topts=None, audit=None, scale_microbatches=True):
     """Builds the cell's inputs (``shape``, a `ShapeSpec`) on ``mesh`` and
     runs its step once under `op_stats.OpStats` (and ``audit``, an
     `op_stats.DotAudit`, above it where given) → (stats, arguments,
-    outputs, seconds).  ``topts`` replaces a train step's
-    `TrainOptions` (`train.steps.dryrun_train_options`'s by default)."""
+    outputs, seconds, microbatches).  ``topts`` replaces a train step's
+    `TrainOptions` (`train.steps.dryrun_train_options`'s by default);
+    with ``scale_microbatches`` a step of n > 2 microbatches runs two of
+    them, the second counted n − 1 times (`_scaled_microbatches`).
+    ``microbatches`` is
+    ``{"n": n, "traced": the microbatches run}`` for a train step, else
+    None."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     kind = shape.kind
     model = lm.LM(cfg, device=device)  # no generator: nothing is drawn
     ins = specs_mod.input_specs(cfg, shape, device)
+    micro = None
     if kind == "train":
         state_dtype, default_topts = steps_mod.dryrun_train_options(cfg)
         topts = topts or default_topts
+        n = topts.num_microbatches
+        micro = {"n": n, "traced": min(n, 2) if scale_microbatches else n}
         ocfg = opt.AdamWConfig(state_dtype=state_dtype)
         ostate = opt.init_state(ocfg, lm.param_tree(model))
         ostate = _place_tree(ostate, sharding.param_shardings(ostate, mesh))
@@ -284,13 +556,15 @@ def _run_step(cfg, shape, mesh, device, topts=None, audit=None):
         batch = _place_tree(ins["batch"], sharding.data_shardings(ins["batch"], mesh))
         args = (params, ostate, batch) if kind == "train" else (params, batch)
     stats = op_stats.OpStats(arguments=_locals(args))
+    counters = (stats, *([audit] if audit is not None else []))
     t0 = time.time()
     with contextlib.ExitStack() as modes:
         for ctx in (implicit_replication(), _strategy_gaps(), stats, _LocalGaps(),
-                    *([audit] if audit is not None else [])):
+                    *counters[1:]):
             modes.enter_context(ctx)
         if kind == "train":
-            step = steps_mod.make_train_step(cfg, ocfg, topts)
+            loop = _scaled_microbatches(*counters) if micro["traced"] < n else range
+            step = steps_mod.make_train_step(cfg, ocfg, topts, loop)
             _, ostate, metrics = step(model, ostate, batch)
             outs = (params, ostate, metrics)
         elif kind == "prefill":
@@ -299,12 +573,12 @@ def _run_step(cfg, shape, mesh, device, topts=None, audit=None):
         else:
             with torch.no_grad():
                 outs = steps_mod.make_serve_step(cfg)(model, cache, tokens, ins["pos"])
-    return stats, args, outs, time.time() - t0
+    return stats, args, outs, time.time() - t0, micro
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None,
                device: str = "cuda", verbose: bool = True, spec=None, cfg=None,
-               topts=None, audit: bool = False) -> dict:
+               topts=None, audit: bool = False, scale_microbatches: bool = True) -> dict:
     """One cell's row.  ``mesh`` is an ``{axis: size}`` mapping (the
     production mesh of ``multi_pod`` by default); the cell runs on a fake
     process group of its size, made and destroyed here.  ``spec``, a
@@ -313,7 +587,11 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None
     ``get_config(arch)`` and ``topts`` a train step's `TrainOptions`.
     ``audit`` adds the row's `op_stats.DotAudit` summary under
     ``"audit"``.  ``torch`` is the version that traced it: `DTensor`
-    partitions apart from one release to the next."""
+    partitions apart from one release to the next.  A train step of n > 2
+    microbatches traces two and counts the second n − 1 times, as the
+    reference's `hlo_stats` counts its scan's body by the trip count
+    (`_scaled_microbatches`; ``scale_microbatches=False`` traces all n);
+    a train row records ``"microbatches": {"n": n, "traced": ...}``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.symbolic_shapes import ShapeEnv
 
@@ -333,7 +611,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None
         axes.set_logical_axes(dmesh.mesh_dim_names)
         try:
             with FakeTensorMode(shape_env=ShapeEnv()):
-                stats, args, outs, secs = _run_step(cfg, shape, dmesh, device, topts, dots)
+                stats, args, outs, secs, micro = _run_step(cfg, shape, dmesh, device, topts,
+                                                           dots, scale_microbatches)
                 arg_locals, out_locals = _locals(args), _locals(outs)
                 arg_ids = {id(t.untyped_storage()) for t in arg_locals}
                 argument_bytes = _bytes_of(
@@ -346,6 +625,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None
         finally:
             axes.set_logical_axes(())
     cell["lower_s"] = round(secs, 2)
+    if micro is not None:
+        cell["microbatches"] = micro
     cell["memory"] = {
         "argument_bytes": argument_bytes, "output_bytes": output_bytes,
         "temp_bytes": temp_bytes, "alias_bytes": alias_bytes,

@@ -28,7 +28,11 @@ the local tensors, and those calls reach the mode again: that is where
 it counts.  The global-shape ops `DTensor` runs to propagate output
 metadata are not counted (`_propagation_unseen`).  The port runs no
 loop in a graph, so every op is counted where it runs: a collective's
-``mult`` is the number of identical calls.
+``mult`` is the number of identical calls.  The one loop the dry run
+does not run whole is a train step's microbatches: it runs two, the
+second under `scaled`, which counts each op of it as the n − 1 identical
+ops of the later trips, as `hlo_stats` counts a ``while`` body by its
+``known_trip_count``.
 """
 from __future__ import annotations
 
@@ -197,16 +201,33 @@ def _propagation_unseen():
                 setattr(obj, name, old)
 
 
+@contextlib.contextmanager
+def scaled(n: int, *counters):
+    """Inside the block every op that ``counters`` (`OpStats`,
+    `DotAudit`) count counts as ``n`` identical ops: the ops of one trip
+    of a loop that runs ``n`` alike.  Live bytes are not scaled: a trip's
+    buffers are freed before the next."""
+    for c in counters:
+        c.scale = n
+    try:
+        yield
+    finally:
+        for c in counters:
+            c.scale = 1
+
+
 class OpStats(TorchDispatchMode):
     """Counts the ops run inside it (see the module's docstring) into
     ``flops``, ``bytes_accessed``, ``collectives`` (one dict a call: kind,
     result bytes, group size, link bytes), ``peak_live_bytes``: the
     most bytes of storage made inside it alive at once, those of
     ``arguments`` (tensors alive before it) excluded, and ``touched``: the
-    storages (by id) that some op took as an operand."""
+    storages (by id) that some op took as an operand.  An op counts
+    ``scale`` times (`scaled`)."""
 
     def __init__(self, arguments=()):
         super().__init__()
+        self.scale = 1
         self.flops = 0.0
         self.bytes_accessed = 0.0
         self.collectives: list[dict] = []
@@ -255,8 +276,8 @@ class OpStats(TorchDispatchMode):
         n = _resolve_process_group(group_name).size()
         for o in _tensors(out):
             b = nbytes(o)
-            self.collectives.append({"op": kind, "bytes": b, "group": n,
-                                     "link_bytes": link_bytes(kind, b, n)})
+            self.collectives.extend([{"op": kind, "bytes": b, "group": n,
+                                      "link_bytes": link_bytes(kind, b, n)}] * self.scale)
 
     def _bytes(self, func, args, kwargs, out) -> float:
         name = func._opname
@@ -286,10 +307,10 @@ class OpStats(TorchDispatchMode):
         for t in _tensors((args, kwargs)):
             self.touched.add(id(_storage(t)))
         if func in _DOTS:
-            self.flops += dot_flops(func, args, out)
+            self.flops += self.scale * dot_flops(func, args, out)
         if func.namespace in ("_c10d_functional", "c10d_functional"):
             self._collective(func, args, out)
-        self.bytes_accessed += self._bytes(func, args, kwargs, out)
+        self.bytes_accessed += self.scale * self._bytes(func, args, kwargs, out)
         for o in _tensors(out):
             self._track(o)
         return out
@@ -367,10 +388,12 @@ class DotAudit(TorchDispatchMode):
     ``flops``; ``global_flops`` sums G, the step's FLOPs on one rank;
     ``dots`` groups the ops by (op, global output shape, placements)
     with their count and the share of G rank 0 executes (1 where the op
-    is replicated over the whole mesh)."""
+    is replicated over the whole mesh).  An op counts ``scale`` times
+    (`scaled`)."""
 
     def __init__(self):
         super().__init__()
+        self.scale = 1
         self.expected_flops = 0.0
         self.global_flops = 0.0
         self._dots: dict[tuple, dict] = {}
@@ -386,10 +409,10 @@ class DotAudit(TorchDispatchMode):
                                             "placements": list(placements),
                                             "share": local / g, "count": 0,
                                             "global_flops": 0.0})
-            e["count"] += 1
-            e["global_flops"] += g
-            self.expected_flops += local
-            self.global_flops += g
+            e["count"] += self.scale
+            e["global_flops"] += self.scale * g
+            self.expected_flops += self.scale * local
+            self.global_flops += self.scale * g
         return out
 
     def summary(self) -> dict:

@@ -52,7 +52,7 @@ def dryrun_train_options(cfg: ModelConfig) -> tuple[str, TrainOptions]:
                          accum_dtype="bfloat16" if big else "float32"))
 
 
-def make_grad_fn(cfg: ModelConfig, topts: TrainOptions):
+def make_grad_fn(cfg: ModelConfig, topts: TrainOptions, microbatches=range):
     """Returns grad_fn(model, batch) → (loss, aux, grads): the train
     step's loss (the microbatches' mean), ``aux`` from the last
     microbatch and the gradients it hands to the update, a list over the
@@ -65,6 +65,9 @@ def make_grad_fn(cfg: ModelConfig, topts: TrainOptions):
     the accumulator as soon as autograd has it and drops it, so no
     second gradient tree is held: ``a.add_(g.to(adt))`` rounds as the
     reference's ``(a + g.astype(adt)).astype(adt)`` does.
+    ``microbatches(n)`` gives the indices of the microbatches the loop
+    runs: all ``n``; the dry run runs two and counts the second ``n − 1``
+    times (`launch.dryrun`).
     """
     adt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[topts.accum_dtype]
     n = topts.num_microbatches
@@ -90,7 +93,7 @@ def make_grad_fn(cfg: ModelConfig, topts: TrainOptions):
                  for p, a in zip(leaves, acc)]
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         try:
-            for i in range(n):
+            for i in microbatches(n):
                 micro = {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
                          for k, v in batch.items()}
                 loss, aux = lm.loss_fn(cfg, model, micro, remat_units=topts.remat)
@@ -106,15 +109,17 @@ def make_grad_fn(cfg: ModelConfig, topts: TrainOptions):
     return grad_fn
 
 
-def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, topts: TrainOptions):
+def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, topts: TrainOptions,
+                    microbatches=range):
     """Returns train_step(model, opt_state, batch) → (model, state, metrics).
 
     ``batch`` holds tensors {tokens, targets, loss_weights?} on the
     model's device; the metrics are 0-d tensors {loss, ce, lb_loss,
     z_loss, grad_norm, lr} (`make_grad_fn`'s loss and aux).
     ``opt_state`` is consumed (`optimizer.apply_updates`).
+    ``microbatches`` goes to `make_grad_fn`.
     """
-    grad_fn = make_grad_fn(cfg, topts)
+    grad_fn = make_grad_fn(cfg, topts, microbatches)
 
     def train_step(model, opt_state, batch):
         params = lm.param_tree(model)
