@@ -195,7 +195,13 @@ Phases, each fatal on failure:
    and trace time; (c) qwen1.5-0.5b's and mamba2-130m's ``train_4k`` on
    the same group, each held to its audit (the FLOPs a device, counted
    below `DTensor`, equal the placements' shares, computed above it),
-   with its trace time and the torch release;
+   with its trace time and the torch release; (b) and (c) each beside
+   the reference's own row of the cell (``results/dryrun_reference.json``,
+   read as data): FLOPs, link bytes and memory a device and the port's
+   over the reference's, held to `reference_bounds` (FLOPs within 1.5
+   for qwen's train step and 2 elsewhere, and at least 0.9 where the
+   reference splits the step over its devices; qwen's train memory
+   within 2);
 15. the ``kernels`` JSON line, then ``{"ok": true, ...}`` as the last line.
    Each kernel's ``session_launches``, ``plane_launches``,
    ``stream_launches``, ``serve_launches``, ``lifecycle_launches``,
@@ -4127,6 +4133,47 @@ DRYRUN_CELL = ("qwen1_5_0_5b", "decode_32k")  # (b) on the fake 16 x 16 group
 # attention's pad, the embedding's index_put; mamba2's cumsum backward flips)
 DRYRUN_TRAIN_CELLS = (("qwen1_5_0_5b", "train_4k"), ("mamba2_130m", "train_4k"))
 ONE_RANK = {"data": 1, "model": 1}
+# The bounds a sharded row of the dry run is held to, its count a device
+# over the reference's own row (`results/dryrun_reference.json`): FLOPs at
+# most 1.5 times in a train or prefill step of a family with attention in
+# every block (not "ssm" or "hybrid") and 2 times elsewhere; at least 0.9
+# times where the reference splits the step's work over its devices (its
+# FLOPs a device times the devices within `REF_SPLIT` of the port's step
+# FLOPs, `cost["step_flops"]`), as on the reduced meshes
+# (`tests/launch_cells.FLOPS_RATIO`); and a dense family's train step's
+# memory a device at most 2 times.
+REF_FLOPS_MOST = {"attention": 1.5, "other": 2.0}
+REF_FLOPS_LEAST = 0.9
+REF_SPLIT = 1.1
+REF_MEMORY_MOST = 2.0
+
+
+def reference_bounds(row: dict, ref: dict) -> dict:
+    """{metric: (least, most)} that ``row``, a dry-run row of the port,
+    is held to over ``ref``, the reference's row of the same cell."""
+    from repro_torch.configs import get_config
+
+    family = get_config(row["arch"]).family
+    attention = family not in ("ssm", "hybrid") and row["kind"] in ("train", "prefill")
+    step = row["cost"].get("step_flops")
+    split = step is not None and ref["cost"]["flops"] * ref["devices"] <= REF_SPLIT * step
+    bounds = {"flops": (REF_FLOPS_LEAST if split else 0.0,
+                        REF_FLOPS_MOST["attention" if attention else "other"])}
+    if family == "dense" and row["kind"] == "train":
+        bounds["memory"] = (0.0, REF_MEMORY_MOST)
+    return bounds
+
+
+def reference_breaks(row: dict, ref: dict) -> list[str]:
+    """The bounds (`reference_bounds`) that ``row`` breaks, each as text."""
+    from repro_torch.launch import dryrun
+
+    key = "/".join((row["arch"], row["shape"], row["mesh"]))
+    ratios = dryrun.against_reference(row, ref)
+    return [f"{key}: {metric} {ratios[metric]:.4f} of the reference's, outside "
+            f"[{least}, {most}]"
+            for metric, (least, most) in reference_bounds(row, ref).items()
+            if not least <= ratios[metric] <= most]
 
 
 def real_flops(step, *args) -> int:
@@ -4230,8 +4277,10 @@ def dryrun_path(card: str) -> dict:
               f"{', '.join(f'{k} {v * 1e3:.4f} ms' for k, v in terms.items())}; step_bound "
               f"{roofline.step_bound(row) * 1e3:.4f} ms; card {card}", flush=True)
         rows.append((label, row))
+    reference = dryrun.reference_rows()
     arch, shape = DRYRUN_CELL
     cell = dryrun.lower_cell(arch, shape, device="cuda", verbose=False)
+    beside_reference(cell, reference)
     r = roofline.analyze_row(cell)
     print(f"[dryrun] {arch} x {shape} on the fake 16 x 16 group (256 ranks), torch "
           f"{cell['torch']}'s DTensor partitioning: trace {cell['lower_s']} s; terms "
@@ -4254,9 +4303,32 @@ def dryrun_path(card: str) -> dict:
               f"{row['collectives']['num_collectives']} collectives; memory a device "
               f"{row['memory']['per_device_total'] / 2**30:.2f} GiB; microbatches "
               f"{row['microbatches']}", flush=True)
+        beside_reference(row, reference)
         train_cells.append(row)
     print(f"[dryrun] the real steps took {t_real:.2f} s", flush=True)
     return {"steps": rows, "cell": cell, "train_cells": train_cells}
+
+
+def beside_reference(row: dict, reference: dict) -> None:
+    """The reference's row of the same cell (`results/dryrun_reference.json`,
+    XLA's partitioning of the JAX package on 256 fake devices, read as
+    data) beside ``row``: FLOPs, link bytes and memory a device and the
+    port's over the reference's; raises where a ratio breaks
+    `reference_bounds`."""
+    from repro_torch.launch import dryrun
+
+    key = (row["arch"], row["shape"], row["mesh"])
+    ref = reference[key]
+    ratios = dryrun.against_reference(row, ref)
+    print(f"[dryrun] {' x '.join(key)} beside the reference's row (jax {ref['jax']}): FLOPs "
+          f"a device {row['cost']['flops']:.6g} / {ref['cost']['flops']:.6g} = "
+          f"{ratios['flops']:.4f}; link bytes {row['collectives']['link_bytes_total']:.6g} / "
+          f"{ref['collectives']['link_bytes_total']:.6g} = {ratios['link_bytes']:.4f}; memory "
+          f"{row['memory']['per_device_total']} / {ref['memory']['per_device_total']} = "
+          f"{ratios['memory']:.4f}; bounds {reference_bounds(row, ref)}", flush=True)
+    breaks = reference_breaks(row, ref)
+    if breaks:
+        raise AssertionError(f"[dryrun] beyond the reference's bounds: {breaks}")
 
 
 def dryrun_report(res: dict, measured: dict, card: str) -> None:

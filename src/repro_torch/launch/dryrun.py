@@ -37,7 +37,8 @@ counterpart and are not written.
 
 Where `DTensor`'s rules cannot partition an op of the step, the trace
 steers it (`_strategy_gaps`, `_LocalGaps`; `ROADMAP.md` § 3, "Two
-partitioners"): the model modules run as they run on one card.
+partitioners"): the model modules run as they run on one card, the
+optimizer slicing a leaf by the elements one device holds of it.
 
 Each cell runs in a subprocess of its own (its fake process group never
 meets another group), under ``--cell-timeout``; a failing or timed-out
@@ -168,66 +169,145 @@ def _select_reduces_masked(original):
     return strategy
 
 
-def _rank0_numel(shape, placements, mesh) -> int:
-    """Rank 0's element count of a tensor of global ``shape`` under
-    ``placements`` (each `Shard` splits its dim, the first ranks taking
-    the ceiling)."""
+def _rank0_shape(shape, placements, mesh) -> list:
+    """Rank 0's shape of a tensor of global ``shape`` under ``placements``
+    (each `Shard` splits its dim, the first ranks taking the ceiling);
+    its offset in the global tensor is 0 on every dim."""
     from torch.distributed.tensor import Shard
 
     local = list(shape)
     for i, p in enumerate(placements):
         if type(p) is Shard:
             local[p.dim] = -(-local[p.dim] // mesh.size(i))
-    return math.prod(local)
+    return local
 
 
-def _views_keep_numel(original):
-    """``view``'s strategy (``original``), but where the output it gives
-    holds on rank 0 another number of elements than the input it asks
-    for, the input first replicates the inner of two mesh dimensions that
-    shard one tensor dim, until the two agree: `DTensor`'s rule hands
-    every shard of a dim two mesh dimensions split (a merged batch ×
-    heads, over ``pod`` and ``model``) to the first factor of a split,
-    which a factor smaller than the two cannot hold (a microbatch of 2
-    over 4 ranks).  Where the two agree, the strategy is `DTensor`'s
-    own."""
-    from torch.distributed.tensor import Replicate, Shard
+def _from_rank0(local, mesh, placements, shape):
+    """``local`` as rank 0's shard of a contiguous `DTensor` of global
+    ``shape`` under ``placements`` (no check, no collective)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=shape,
+                              stride=stride)
+
+
+def _rank0_numel(shape, placements, mesh) -> int:
+    """Rank 0's element count (`_rank0_shape`)."""
+    return math.prod(_rank0_shape(shape, placements, mesh))
+
+
+TP_AXIS = "model"  # the tensor-parallel mesh axis of `distributed.sharding`'s rules
+
+
+def _fold(shape, target):
+    """(i, j) where the view ``shape`` → ``target`` merges ``shape[i:j]``
+    into ``target[i]`` (j − i ≥ 2), every other dim kept; else None."""
+    shape, target = tuple(shape), tuple(target)
+    if len(target) >= len(shape):
+        return None
+    i = next((k for k, (a, b) in enumerate(zip(shape, target)) if a != b), len(target))
+    j = i + len(shape) - len(target) + 1
+    if i >= len(target) or math.prod(shape[i:j]) != target[i] or shape[j:] != target[i + 1:]:
+        return None
+    return i, j
+
+
+def _merged_placements(shape, placements, mesh, i, j):
+    """The placements of the view that merges ``shape[i:j]`` into one dim,
+    where two mesh dimensions or more shard those dims outer to inner in
+    mesh order (batch over ``pod``/``data``, heads over ``model``: the
+    attention's fold of (B, H) before its batched products), each dim
+    evenly: the merged dim sharded over the same mesh dimensions, in the
+    same order.  Rank 0 holds the same elements before and after, its
+    local view, as XLA's partitioner keeps both shards through a dot's
+    batch dims; `DTensor` would gather the inner shard (torch 2.11) or
+    shard the merged dim strided (2.13).  What the placements claim rank 0
+    holds is a relabelling of those rows: the counts (every op's local
+    shape, every collective) are the same.  None where the case is
+    another (`DTensor`'s own rule applies)."""
+    from torch.distributed.tensor import Shard
+
+    sharded = [(p.dim, k) for k, p in enumerate(placements)
+               if type(p) is Shard and i <= p.dim < j]
+    if len({d for d, _ in sharded}) < 2 and not any(d > i for d, _ in sharded):
+        return None
+    if [k for _, k in sorted(sharded)] != sorted(k for _, k in sharded):
+        return None
+    for d in {d for d, _ in sharded}:
+        if shape[d] % math.prod(mesh.size(k) for dd, k in sharded if dd == d):
+            return None
+    if any(not (type(p) is Shard or p.is_replicate() or p.is_partial()) for p in placements):
+        return None
+    return tuple(Shard(i) if type(p) is Shard and i <= p.dim < j
+                 else Shard(p.dim - (j - i - 1)) if type(p) is Shard and p.dim >= j else p
+                 for p in placements)
+
+
+def _split_placements(shape, placements, mesh, i, j):
+    """The inverse of `_merged_placements`: a view that splits dim ``i``,
+    which two mesh dimensions or more shard, into ``shape[i:j]``, each
+    such mesh dimension given a factor it divides evenly — `TP_AXIS` the
+    innermost (heads), every other the outermost (batch over ``pod`` and
+    ``data``) — so that rank 0 keeps its elements.  None where no such
+    assignment exists."""
+    from torch.distributed.tensor import Shard
+
+    ks = [k for k, p in enumerate(placements) if type(p) is Shard and p.dim == i]
+    if len(ks) < 2:
+        return None
+    rem, to = list(shape[i:j]), {}
+    for k in ks:
+        inner = mesh.mesh_dim_names[k] == TP_AXIS
+        order = range(len(rem) - 1, -1, -1) if inner else range(len(rem))
+        f = next((f for f in order if rem[f] % mesh.size(k) == 0), None)
+        if f is None:
+            return None
+        rem[f] //= mesh.size(k)
+        to[k] = i + f
+    return tuple(Shard(to[k]) if k in to
+                 else Shard(p.dim + (j - i - 1)) if type(p) is Shard and p.dim > i else p
+                 for k, p in enumerate(placements))
+
+
+def _view_strategy(original):
+    """``view``'s strategy (``original``), but a merge of dims that two
+    mesh dimensions shard keeps both shards (`_merged_placements`), and
+    the split back restores them (`_split_placements`): no collective,
+    rank 0's local view.  Elsewhere the strategy is `DTensor`'s own."""
     from torch.distributed.tensor._dtensor_spec import DTensorSpec
-    from torch.distributed.tensor._op_schema import OpSchema, OpSpec, OpStrategy
-    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+
+    def kept(src, target):
+        """The strategies that keep rank 0's elements in place, or None."""
+        shape = tuple(src.shape)
+        merge, split = _fold(shape, target), _fold(target, shape)
+        out = OpStrategy([])
+        for s in src.strategies:
+            spec = s.output_spec
+            if merge:
+                placements = _merged_placements(shape, spec.placements, spec.mesh, *merge)
+            elif split:
+                placements = _split_placements(target, spec.placements, spec.mesh, *split)
+            else:
+                return None
+            if placements is None or (_rank0_numel(shape, spec.placements, spec.mesh)
+                                      != _rank0_numel(target, placements, spec.mesh)):
+                return None
+            out.strategies.append(OpSpec(
+                output_specs=DTensorSpec(spec.mesh, placements),
+                input_specs=(spec,),
+                redistribute_cost=[[0.0 if t is s else math.inf for t in src.strategies]]))
+        return out
 
     def strategy(op_schema):
         src = op_schema.args_schema[0]
-        shape = tuple(src.shape)
         target = list(op_schema.args_schema[1])
         if -1 in target:
-            target[target.index(-1)] = math.prod(shape) // -math.prod(target)
-
-        def agree(s):
-            return (_rank0_numel(shape, s.input_specs[0].placements, s.output_spec.mesh)
-                    == _rank0_numel(target, s.output_spec.placements, s.output_spec.mesh))
-
-        out = OpStrategy([])
-        for s in original(op_schema).strategies:
-            fixed = s
-            while not agree(fixed):
-                placements = list(fixed.input_specs[0].placements)
-                dims = [p.dim if type(p) is Shard else None for p in placements]
-                inner = [i for i, d in enumerate(dims) if d is not None and dims.index(d) < i]
-                if not inner:
-                    raise RuntimeError(f"{op_schema}: no layout the view rule holds")
-                placements[inner[-1]] = Replicate()
-                spec = DTensorSpec(s.output_spec.mesh, tuple(placements),
-                                   tensor_meta=s.input_specs[0].tensor_meta)
-                fixed = original(OpSchema(op_schema.op, (OpStrategy([OpSpec(spec)]),
-                                                         *op_schema.args_schema[1:]),
-                                          op_schema.kwargs_schema)).strategies[0]
-            if fixed is not s:
-                fixed = OpSpec(output_specs=fixed.output_spec, input_specs=fixed.input_specs,
-                               redistribute_cost=[generate_redistribute_costs(
-                                   src, fixed.input_specs[0])])
-            out.strategies.append(fixed)
-        return out
+            target[target.index(-1)] = math.prod(src.shape) // -math.prod(target)
+        own = kept(src, target)
+        return own if own is not None else original(op_schema)
 
     return strategy
 
@@ -380,9 +460,10 @@ def _strategy_gaps():
     * ``view`` and ``_unsafe_view`` (the folds of a batched matmul):
       `DTensor`'s rule refuses a merge of dims whose inner one is sharded
       (torch 2.11), or shards the merged dim strided (2.13), which its
-      planner then searches on a graph; here such a view redistributes
-      its input first, as ``reshape``'s rule does (`_views_keep_numel`
-      where the rule would split a dim two mesh dimensions shard wrong);
+      planner then searches on a graph; here a merge of dims two mesh
+      dimensions shard keeps both shards and its split back restores
+      them (`_view_strategy`), and any other such view redistributes its
+      input first, as ``reshape``'s rule does;
     * ``select`` of a masked partial: `_select_reduces_masked`;
     * ``flip``: `_flip_strategy`, in place of 2.13's single-dimension
       strategy (which 2.11 lacks, and which the propagator would consult
@@ -396,10 +477,14 @@ def _strategy_gaps():
       an index whose dim two mesh dimensions shard (the batch over
       ``pod`` and ``data``), and its ``index_put`` shards on dim -1;
     * a redistribution's move of a shard to a partial sum:
-      `_shard_to_partial_in_two`."""
+      `_shard_to_partial_in_two`;
+    * ``detach_``, which an autograd function's output meets when the dry
+      run redistributes below autograd (`_LocalGaps`): torch 2.13's own
+      strategy (the input's placements kept), which 2.11 lacks."""
     from torch.distributed.tensor import DTensor, _dispatch, _redistribute
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
     from torch.distributed.tensor._ops import _view_ops
+    from torch.distributed.tensor._ops._tensor_ops import propagate_single_input_strategy
     from torch.distributed.tensor._ops.single_dim_strategy import _SingleDimStrategyInfo
 
     aten = torch.ops.aten
@@ -413,7 +498,7 @@ def _strategy_gaps():
     tables = (prop.op_strategy_funcs, prop.op_to_schema_info,
               prop.op_single_dim_strategy_funcs, prop.op_to_schema_info_for_single_dim_strategy)
     saved = {op: [t.get(op) for t in tables]
-             for op in (*views, aten.select.int, aten.flip.default, *rules)}
+             for op in (*views, aten.select.int, aten.flip.default, aten.detach_.default, *rules)}
     prop.propagate_op_sharding.cache.cache_clear()  # no sharding from before the trace
     runs = (_dispatch, _redistribute)  # each binds its own name of the function
     redistribute = _redistribute.redistribute_local_tensor
@@ -424,10 +509,12 @@ def _strategy_gaps():
             _view_ops.register_op_strategy_map(op, torch.Tensor.view,
                                                schema_info=RuntimeSchemaInfo(1),
                                                strict_view=False)
-            prop.op_strategy_funcs[op] = _views_keep_numel(prop.op_strategy_funcs[op])
+            prop.op_strategy_funcs[op] = _view_strategy(prop.op_strategy_funcs[op])
         prop.register_op_strategy(aten.select.int,
                                   _select_reduces_masked(saved[aten.select.int][0]),
                                   saved[aten.select.int][1])
+        if aten.detach_.default not in prop.op_strategy_funcs:
+            prop.register_op_strategy(aten.detach_.default, propagate_single_input_strategy)
         prop.op_single_dim_strategy_funcs.pop(aten.flip.default, None)
         prop.register_op_strategy(aten.flip.default, _flip_strategy, RuntimeSchemaInfo(1))
         for op, (rule, info) in rules.items():
@@ -446,10 +533,171 @@ def _strategy_gaps():
         prop.propagate_op_sharding.cache.cache_clear()
 
 
+_DOT_DIMS = {  # (lhs batch, lhs free, lhs contracted, rhs batch, rhs contracted, rhs free)
+    2: (None, 0, 1, None, 0, 1),
+    3: (0, 1, 2, 0, 1, 2),
+}
+
+
+def _dot_placements(a, b):
+    """The placements a matmul-family product's operands ``a`` and ``b``
+    (`DTensor`s of 2 or 3 dims) are brought to before it runs: on each
+    mesh dimension the operands' own shards are kept where they pair, as
+    XLA's dot partitioner keeps them — batch with batch, contracted with
+    contracted (a partial sum out), a free dim with the other operand
+    replicated — and a replicated operand is sliced to pair with the
+    other's shard (no collective).  Where the two disagree, one is moved:
+    off `TP_AXIS` a free dim's shard is kept, the left operand's where
+    both are sharded, and the other operand gathered (an FSDP weight: the
+    activation's rows stay where they are); over `TP_AXIS` the right
+    operand's free shard where both are sharded (the activation's sequence
+    shard gathered before a column-parallel weight, as Megatron's sequence
+    parallelism does), else the smaller operand moves; a batch dim's shard
+    is kept but where the operand it shards is the smaller (a decode
+    step's query beside its cache's head-dim shard: the query moves, the
+    cache stays).  A product both operands hold whole over a mesh
+    dimension is split there only as `split` says, and only evenly: a
+    dim the mesh dimension does not divide (a weight width, as mamba2's
+    in-projection's 3352; heads, as whisper's 12) stays whole, as XLA
+    leaves it.  A partial-sum operand is reduced to the shard its partner
+    pairs with (a reduce-scatter; an all-reduce where the partner shards
+    its free dim, or where the mesh dimension does not divide the dim a
+    reduce-scatter would shard).  `DTensor`'s own choice is the cheapest
+    redistribution with compute free, and so runs a product whole on
+    every rank rather than move an activation (a partial gradient times
+    a replicated weight, or both gathered)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ab, af, ac, bb, bc, bf = _DOT_DIMS[a.ndim]
+    mesh = a.device_mesh
+    roles_a = {ab: "batch", af: "free", ac: "contract"}
+    roles_b = {bb: "batch", bc: "contract", bf: "free"}
+    dim_a = {v: k for k, v in roles_a.items()}
+    dim_b = {v: k for k, v in roles_b.items()}
+    # the elements each operand holds: a weight broadcast over a batch
+    # holds one matrix
+    a_bytes, b_bytes = (math.prod(n for n, st in zip(t.shape, t.stride()) if st)
+                        for t in (a, b))
+
+    def role(p, roles):
+        if type(p) is Shard:
+            return roles.get(p.dim, "other")
+        if p.is_replicate():
+            return "R"
+        return "P" if p.is_partial() else "other"
+
+    def pair(ra, rb, k):
+        if ra == "other":
+            ra = "P" if a.placements[k].is_partial() else "R"
+        if rb == "other":
+            rb = "P" if b.placements[k].is_partial() else "R"
+        if ra == "P" and rb == "P":
+            if ab is not None and even(a, ab, k) and even(b, bb, k):
+                return "batch", "batch"
+            return ("free" if ab is None and even(a, af, k) else "R"), "R"
+        if ra == "P":
+            return {"batch": "batch", "contract": "contract", "free": "R",
+                    "R": own(a, ab, af, k)}[rb], rb
+        if rb == "P":
+            return ra, {"batch": "batch", "contract": "contract", "free": "R",
+                        "R": own(b, bb, bf, k)}[ra]
+        if "batch" in (ra, rb):
+            other, small = (rb, a_bytes < b_bytes) if ra == "batch" else (ra, b_bytes < a_bytes)
+            if other in ("contract", "free") and small:  # the smaller operand moves
+                return (("contract", "contract") if other == "contract"
+                        else ("R", "free") if ra == "batch" else ("free", "R"))
+            return "batch", "batch"
+        if ra == rb == "R":
+            return split(k)
+        if ra == rb != "free":
+            return ra, rb  # contracted with contracted
+        if "R" in (ra, rb):
+            if ra == "contract" or rb == "contract":
+                return "contract", "contract"
+            return ra, rb  # a free dim beside a replicated operand
+        if mesh.mesh_dim_names[k] != TP_AXIS and "free" in (ra, rb):
+            return ("free", "R") if ra == "free" else ("R", "free")
+        if ra == "free" and rb == "free":
+            return "R", "free"
+        if a_bytes >= b_bytes:
+            return ra, "R" if ra == "free" else "contract"
+        return "R" if rb == "free" else "contract", rb
+
+    def even(t, d, k):
+        """Whether mesh dimension ``k`` divides dim ``d`` of ``t`` evenly,
+        beside the other mesh dimensions that shard it."""
+        rest = math.prod(mesh.size(j) for j, p in enumerate(t.placements)
+                         if j != k and type(p) is Shard and p.dim == d)
+        return t.shape[d] % (rest * mesh.size(k)) == 0
+
+    def split(k):
+        """A product both operands hold whole over ``k``: over `TP_AXIS`,
+        split over the right operand's columns, else the left operand's
+        rows, where ``k`` divides them evenly (XLA shards such a product's
+        output as its consumers are sharded: the SSD's in-projection, whose
+        weight the rules leave whole, or a head whose vocab 16 does not
+        divide); whole where ``k`` divides neither, off `TP_AXIS` (a batch
+        the data axes do not divide stays whole there, as XLA keeps
+        llama3-405b's 16-row microbatch over ``pod``), and for a batched
+        product of two activations, whose batch folds dims the product
+        cannot see (heads that ``k`` does not divide keep the attention
+        whole).  A batched product whose right operand is one matrix
+        broadcast over the batch (a 3-dim activation times a weight) is a
+        2-dim one."""
+        if mesh.mesh_dim_names[k] != TP_AXIS or (ab is not None and b.stride(bb) != 0):
+            return "R", "R"
+        sides = [("R", "free", b, bf), ("free", "R", a, af)]
+        return next(((ta, tb) for ta, tb, t, d in sides if even(t, d, k)), ("R", "R"))
+
+    def own(t, batch, free, k):
+        """The shard a partial sum beside a replicated partner is reduced
+        to: its batch, else its free dim, where ``k`` divides it; else
+        whole (an all-reduce)."""
+        d = batch if batch is not None else free
+        return ("batch" if batch is not None else "free") if even(t, d, k) else "R"
+
+    def place(r, dims):
+        return Replicate() if r == "R" else Shard(dims[r])
+
+    ta, tb = [], []
+    for k in range(mesh.ndim):
+        ra, rb = pair(role(a.placements[k], roles_a), role(b.placements[k], roles_b), k)
+        ta.append(place(ra, dim_a))
+        tb.append(place(rb, dim_b))
+    return tuple(ta), tuple(tb)
+
+
+_NEW_FACTORIES = {torch.ops.aten.new_empty.default, torch.ops.aten.new_zeros.default,
+                  torch.ops.aten.new_ones.default, torch.ops.aten.new_full.default}
+
+
 class _LocalGaps(TorchDispatchMode):
-    """Two ops of the step that the dry run runs its own way, each
+    """The ops of the step that the dry run runs its own way, each
     computing what the op computes:
 
+    * a matmul-family product over `DTensor`s (``mm``, ``bmm`` and their
+      ``add`` forms): its operands redistributed first to
+      `_dot_placements`, so that `DTensor` runs it where it then needs no
+      collective;
+    * the backward of a ``gather`` along a dim its input shards (the CE's
+      gold logit over vocab-sharded logits): autograd's ``new_zeros`` of
+      the input's shape takes the input's placements (`DTensor` gives a
+      new shape replicated: the whole-vocab logits on every rank; any
+      other ``new_*`` factory of a new shape keeps its input's shards of
+      the dims it keeps, `_new_factory`), and the ``scatter_add`` into it
+      runs on each rank's shard, the indices outside it masked (`DTensor`
+      would gather the shards first), as XLA partitions the gather's
+      transpose;
+    * the embedding's lookup (``index`` of a table whose vocab is
+      sharded) on each rank's rows (`_lookup`), and its backward likewise:
+      its ``new_zeros`` takes the table's placements and the accumulating
+      ``index_put`` runs on each rank's rows (`_index_put`);
+    * ``logsumexp`` over a `DTensor` as its parts (a max, an exp, a sum
+      and a log), each on the shards: `DTensor`'s own gathers a sharded
+      reduced dim (the CE's vocab) first, where XLA reduces the max and
+      the sum across the shards;
+    * ``select`` of one index of a sharded dim on the rank that holds it
+      (`_select`);
     * ``bincount(ids, minlength=n)`` as a scatter-add into ``n`` zeros.
       A fake tensor cannot know a length that depends on the data, and
       the step's ids (experts) are all below ``n``, so the counts are
@@ -467,16 +715,240 @@ class _LocalGaps(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         aten = torch.ops.aten
+        if func in op_stats._DOTS:
+            return func(*self._dot_operands(func, args), **kwargs)
+        from torch.distributed.tensor import DTensor
+
+        if func is aten.logsumexp.default and isinstance(args[0], DTensor):
+            return self._logsumexp(*args, **kwargs)
+        if func in (aten.gather.default, aten.index.Tensor) and isinstance(args[0], DTensor):
+            self._gathered[tuple(args[0].shape)] = args[0].placements
+            if func is aten.index.Tensor:
+                out = self._lookup(*args)
+                if out is not None:
+                    return out
+        elif (func is aten.index_put.default and isinstance(args[0], DTensor)
+              and (args[3] if len(args) > 3 else kwargs.get("accumulate", False))):
+            out = self._index_put(*args[:3])
+            if out is not None:
+                return out
+        elif func in _NEW_FACTORIES and isinstance(args[0], DTensor):
+            out = self._new_factory(func, args, kwargs)
+            if out is not None:
+                return out
+        elif func is aten.scatter_add.default and isinstance(args[0], DTensor):
+            out = self._scatter_add(*args)
+            if out is not None:
+                return out
+        elif func is aten.select.int and isinstance(args[0], DTensor):
+            out = self._select(*args)
+            if out is not None:
+                return out
         if func is aten.bincount.default:
             ids, weights, n = (list(args) + [None, 0])[:3]
             if weights is None and n:
                 return self._bincount(ids, n)
-        elif func is aten.scatter_.src and not kwargs:
-            from torch.distributed.tensor import DTensor
-
-            if isinstance(args[0], DTensor):
-                return self._scatter_(*args)
+        elif func is aten.scatter_.src and not kwargs and isinstance(args[0], DTensor):
+            return self._scatter_(*args)
         return func(*args, **kwargs)
+
+    def __init__(self):
+        super().__init__()
+        self._gathered: dict[tuple, tuple] = {}  # a gather input's shape → its placements
+        self.factory_bytes = 0  # rank 0's bytes `_new_factory` kept off: whole less shard
+
+    def _new_factory(self, func, args, kwargs):
+        """``like.new_zeros(shape)`` (``new_empty``, ``new_ones``,
+        ``new_full``) of another shape than ``like``: the placements of the
+        ``gather`` or lookup input of that shape (autograd's zeros for its
+        backward), else, where ``shape`` is ``like``'s with dims resized or
+        trailing dims dropped, ``like``'s shards of the dims whose size it
+        keeps (`rglru._interleave`'s doubled sequence, the attention's
+        accumulators made from its query block); `DTensor` replicates a
+        new shape whole on every rank.  None where the shape is ``like``'s
+        (`DTensor`'s own rule keeps its placements) or no shard is kept.
+        Rank 0's bytes so kept off count in ``factory_bytes``."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        like, shape = args[0], tuple(args[1])
+        if shape == tuple(like.shape):
+            return None
+        mesh = like.device_mesh
+        placements = self._gathered.get(shape) if func is torch.ops.aten.new_zeros.default \
+            else None
+        if placements is None:
+            if len(shape) > like.ndim:
+                return None
+            placements = tuple(p if type(p) is Shard and p.dim < len(shape)
+                               and shape[p.dim] == like.shape[p.dim]
+                               else Replicate() for p in like.placements)
+        if all(p.is_replicate() for p in placements):
+            return None
+        local = func(like.to_local(), _rank0_shape(shape, placements, mesh), *args[2:],
+                     **kwargs)
+        self.factory_bytes += (math.prod(shape) - local.numel()) * local.element_size()
+        return _from_rank0(local, mesh, placements, shape)
+
+    @staticmethod
+    def _lookup(table, indices):
+        """``table[ids]`` where ``ids`` index dim 0 alone (the embedding's
+        lookup): where mesh dimensions shard dim 0, each rank looks its ids
+        up in its rows, those outside masked to zeros, and the partial sums
+        are all-reduced there; the ids keep their batch shard, and a table
+        dim sharded where the ids are (a feature dim over ``data``) is
+        gathered first (FSDP), as XLA partitions the gather; None
+        elsewhere.  `DTensor`'s rule
+        gathers the sharded vocab instead (every rank holds the whole
+        table), or gathers the ids to keep the table's feature shard (the
+        activations then sharded over their features)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh, placements = table.device_mesh, table.placements
+        if (len(indices) != 1 or not isinstance(indices[0], DTensor)
+                or not all(type(p) is Shard or p.is_replicate() for p in placements)
+                or not all(type(p) is Shard or p.is_replicate()
+                           for p in indices[0].placements)):
+            return None
+        ids = indices[0]
+        lead = ids.ndim
+        vocab = [type(p) is Shard and p.dim == 0 for p in placements]
+        id_pl = tuple(Replicate() if v else p for v, p in zip(vocab, ids.placements))
+        tab_pl = tuple(p if v or type(q) is not Shard else Replicate()
+                       for v, p, q in zip(vocab, placements, id_pl))
+        out_pl = tuple(Partial() if v else q if type(q) is Shard
+                       else Shard(p.dim - 1 + lead) if type(p) is Shard else Replicate()
+                       for v, p, q in zip(vocab, tab_pl, id_pl))
+        local_ids = ids.redistribute(mesh, id_pl).to_local()
+        rows = table.redistribute(mesh, tab_pl).to_local()
+        inside = (local_ids >= 0) & (local_ids < rows.shape[0])  # rank 0's rows start at 0
+        got = rows[local_ids.clamp(0, max(rows.shape[0] - 1, 0))]
+        got = torch.where(inside.view(*inside.shape, *[1] * (got.ndim - lead)), got,
+                          torch.zeros_like(got))
+        got = _from_rank0(got, mesh, out_pl, (*ids.shape, *table.shape[1:]))
+        return got.redistribute(mesh, tuple(Replicate() if v else p
+                                            for v, p in zip(vocab, out_pl)))
+
+    @staticmethod
+    def _index_put(target, indices, values):
+        """``target.index_put(indices, values, accumulate=True)`` where
+        ``indices`` index dim 0 alone (the embedding's backward) and mesh
+        dimensions shard it: each rank scatters into its shard of dim 0,
+        the ids outside it masked, keeping the ids' batch shard (a partial
+        sum there, reduced to ``target``'s placements after); None
+        elsewhere."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh, placements = target.device_mesh, target.placements
+        if (len(indices) != 1 or not isinstance(indices[0], DTensor)
+                or not any(type(p) is Shard and p.dim == 0 for p in placements)
+                or not all(type(p) is Shard or p.is_replicate() for p in placements)):
+            return None
+        ids = indices[0]
+        lead = ids.ndim
+        batch = [type(p) is Shard and p.dim == 0 and not (type(t) is Shard and t.dim == 0)
+                 for p, t in zip(ids.placements, placements)]
+        id_pl = tuple(Shard(0) if b else Replicate() for b in batch)
+        val_pl = tuple(Shard(0) if b else Shard(t.dim - 1 + lead) if type(t) is Shard
+                       and t.dim > 0 else Replicate() for b, t in zip(batch, placements))
+        out_pl = tuple(Partial() if b else t for b, t in zip(batch, placements))
+        ids = ids.redistribute(mesh, id_pl).to_local()
+        vals = values.redistribute(mesh, val_pl).to_local()
+        shape = _rank0_shape(target.shape, out_pl, mesh)
+        inside = (ids >= 0) & (ids < shape[0])  # rank 0's shard of dim 0 starts at 0
+        local = vals.new_zeros(shape).index_put(
+            (ids.clamp(0, max(shape[0] - 1, 0)),),
+            torch.where(inside.view(*inside.shape, *[1] * (vals.ndim - lead)), vals,
+                        torch.zeros_like(vals)), True)
+        return target + _from_rank0(local, mesh, out_pl, target.shape).redistribute(
+            mesh, placements)
+
+    @staticmethod
+    def _select(x, dim, index):
+        """``x.select(dim, index)`` where mesh dimensions shard ``dim`` (the
+        prefill's last position of sequence-sharded logits): the rank that
+        holds ``index`` selects it, the others give zeros, and the partial
+        sums are all-reduced there; None elsewhere.  `DTensor` gathers the
+        whole dim first."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        dim %= x.ndim
+        mesh, placements = x.device_mesh, x.placements
+        if not any(type(p) is Shard and p.dim == dim for p in placements) or not all(
+                type(p) is Shard or p.is_replicate() for p in placements):
+            return None
+        local = x.to_local()
+        index %= x.shape[dim]
+        got = local.select(dim, min(index, local.shape[dim] - 1))  # rank 0's rows start at 0
+        if index >= local.shape[dim]:
+            got = torch.zeros_like(got)
+        held = tuple(Partial() if type(p) is Shard and p.dim == dim
+                     else Shard(p.dim - (p.dim > dim)) if type(p) is Shard else p
+                     for p in placements)
+        got = _from_rank0(got, mesh, held, x.shape[:dim] + x.shape[dim + 1:])
+        return got.redistribute(mesh, tuple(Replicate() if p.is_partial() else p for p in held))
+
+    @staticmethod
+    def _logsumexp(x, dim, keepdim=False):
+        """``logsumexp(x, dim, keepdim)`` as torch computes it: the max
+        taken out (0 where it is infinite), its exps summed."""
+        m = torch.amax(x, dim, keepdim=True)
+        m = torch.where(m.isinf(), torch.zeros_like(m), m)
+        out = torch.log(torch.sum(torch.exp(x - m), dim, keepdim=True)) + m
+        if not keepdim:  # one dim at a time: torch 2.11 has no strategy for squeeze.dims
+            for d in sorted((d % x.ndim for d in dim), reverse=True):
+                out = out.squeeze(d)
+        return out
+
+    @staticmethod
+    def _scatter_add(target, dim, index, src):
+        """``target.scatter_add(dim, index, src)`` on each rank's shard of
+        ``target`` where mesh dimensions shard ``dim``; None elsewhere."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        dim %= target.ndim
+        mesh, placements = target.device_mesh, target.placements
+        if not any(type(p) is Shard and p.dim == dim for p in placements):
+            return None
+        if not all(type(p) is Shard or p.is_replicate() for p in placements):
+            return None
+        pair = tuple(Replicate() if type(p) is Shard and p.dim == dim else p
+                     for p in placements)
+        index, src = (t.redistribute(mesh, pair).to_local() if isinstance(t, DTensor) else t
+                      for t in (index, src))
+        local = target.to_local()
+        inside = (index >= 0) & (index < local.shape[dim])  # rank 0's shard starts at 0
+        out = local.scatter_add(dim, index.clamp(0, max(local.shape[dim] - 1, 0)),
+                                torch.where(inside, src, torch.zeros_like(src)))
+        return _from_rank0(out, mesh, placements, target.shape)
+
+    @staticmethod
+    def _dot_operands(func, args):
+        from torch.distributed.tensor import DTensor
+
+        at = 1 if func in (torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default) else 0
+        a, b = args[at:at + 2]
+        if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+            return args
+        ta, tb = _dot_placements(a, b)
+        a, b = (t if tuple(t.placements) == p else _LocalGaps._moved(t, p)
+                for t, p in ((a, ta), (b, tb)))
+        return (*args[:at], a, b, *args[at + 2:])
+
+    @staticmethod
+    def _moved(t, placements):
+        """``t`` redistributed to ``placements``; a matrix ``t`` broadcasts
+        over its batch (dim 0 of stride 0: a weight ``matmul`` expanded
+        beside a 3-dim activation) moves as the matrix, then broadcast
+        again and sliced (`DTensor` would move, and so materialize, every
+        copy)."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        if t.ndim != 3 or t.stride(0) != 0:
+            return t.redistribute(t.device_mesh, placements)
+        whole = tuple(Replicate() if type(p) is Shard and p.dim == 0
+                      else Shard(p.dim - 1) if type(p) is Shard else p for p in placements)
+        matrix = t.select(0, 0).redistribute(t.device_mesh, whole)
+        return matrix.unsqueeze(0).expand(t.shape).redistribute(t.device_mesh, placements)
 
     @staticmethod
     def _bincount(ids, n):
@@ -521,11 +993,11 @@ def _scaled_microbatches(*counters):
     return microbatches
 
 
-def _run_step(cfg, shape, mesh, device, topts=None, audit=None, scale_microbatches=True):
+def _run_step(cfg, shape, mesh, device, audit, topts=None, scale_microbatches=True):
     """Builds the cell's inputs (``shape``, a `ShapeSpec`) on ``mesh`` and
-    runs its step once under `op_stats.OpStats` (and ``audit``, an
-    `op_stats.DotAudit`, above it where given) → (stats, arguments,
-    outputs, seconds, microbatches).  ``topts`` replaces a train step's
+    runs its step once under `op_stats.OpStats` and ``audit``, an
+    `op_stats.DotAudit` above it → (stats, arguments, outputs, seconds,
+    microbatches, the bytes `_LocalGaps` kept off rank 0's factories).  ``topts`` replaces a train step's
     `TrainOptions` (`train.steps.dryrun_train_options`'s by default);
     with ``scale_microbatches`` a step of n > 2 microbatches runs two of
     them, the second counted n − 1 times (`_scaled_microbatches`).
@@ -556,14 +1028,13 @@ def _run_step(cfg, shape, mesh, device, topts=None, audit=None, scale_microbatch
         batch = _place_tree(ins["batch"], sharding.data_shardings(ins["batch"], mesh))
         args = (params, ostate, batch) if kind == "train" else (params, batch)
     stats = op_stats.OpStats(arguments=_locals(args))
-    counters = (stats, *([audit] if audit is not None else []))
+    gaps = _LocalGaps()
     t0 = time.time()
     with contextlib.ExitStack() as modes:
-        for ctx in (implicit_replication(), _strategy_gaps(), stats, _LocalGaps(),
-                    *counters[1:]):
+        for ctx in (implicit_replication(), _strategy_gaps(), stats, audit, gaps):
             modes.enter_context(ctx)
         if kind == "train":
-            loop = _scaled_microbatches(*counters) if micro["traced"] < n else range
+            loop = _scaled_microbatches(stats, audit) if micro["traced"] < n else range
             step = steps_mod.make_train_step(cfg, ocfg, topts, loop)
             _, ostate, metrics = step(model, ostate, batch)
             outs = (params, ostate, metrics)
@@ -573,7 +1044,7 @@ def _run_step(cfg, shape, mesh, device, topts=None, audit=None, scale_microbatch
         else:
             with torch.no_grad():
                 outs = steps_mod.make_serve_step(cfg)(model, cache, tokens, ins["pos"])
-    return stats, args, outs, time.time() - t0, micro
+    return stats, args, outs, time.time() - t0, micro, gaps.factory_bytes
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None,
@@ -585,8 +1056,11 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None
     `ShapeSpec`, replaces ``SHAPES[shape_name]`` (a step at another
     batch or length, named ``shape_name``); ``cfg`` replaces
     ``get_config(arch)`` and ``topts`` a train step's `TrainOptions`.
-    ``audit`` adds the row's `op_stats.DotAudit` summary under
-    ``"audit"``.  ``torch`` is the version that traced it: `DTensor`
+    ``cost["step_flops"]`` is the whole step's FLOPs, from global shapes
+    (`op_stats.DotAudit`'s ``global_flops``: one rank's count of a
+    one-rank mesh); ``audit`` adds the audit's summary under ``"audit"``.
+    ``factory_bytes`` is what `_LocalGaps` kept off rank 0's new
+    buffers, each made on its shard rather than whole.  ``torch`` is the version that traced it: `DTensor`
     partitions apart from one release to the next.  A train step of n > 2
     microbatches traces two and counts the second n − 1 times, as the
     reference's `hlo_stats` counts its scan's body by the trip count
@@ -604,15 +1078,15 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None
         "devices": n, "params": cfg.param_count(), "active_params": cfg.active_param_count(),
         "torch": torch.__version__,
     }
-    dots = op_stats.DotAudit() if audit else None
+    dots = op_stats.DotAudit()
     with fake_group(n):
         dmesh = (make_mesh(sizes, device) if mesh is not None
                  else make_production_mesh(multi_pod, device))
         axes.set_logical_axes(dmesh.mesh_dim_names)
         try:
             with FakeTensorMode(shape_env=ShapeEnv()):
-                stats, args, outs, secs, micro = _run_step(cfg, shape, dmesh, device, topts,
-                                                           dots, scale_microbatches)
+                stats, args, outs, secs, micro, factory_bytes = _run_step(
+                    cfg, shape, dmesh, device, dots, topts, scale_microbatches)
                 arg_locals, out_locals = _locals(args), _locals(outs)
                 arg_ids = {id(t.untyped_storage()) for t in arg_locals}
                 argument_bytes = _bytes_of(
@@ -632,7 +1106,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None
         "temp_bytes": temp_bytes, "alias_bytes": alias_bytes,
         "per_device_total": argument_bytes + output_bytes + temp_bytes - alias_bytes,
     }
-    cell["cost"] = {"flops": full["flops"], "bytes_accessed": full["hbm_bytes"]}
+    cell["cost"] = {"flops": full["flops"], "bytes_accessed": full["hbm_bytes"],
+                    "step_flops": dots.global_flops}
+    cell["factory_bytes"] = factory_bytes
     cell["collectives"] = {k: full[k] for k in ("num_collectives", "link_bytes_total",
                                                 "by_kind")}
     ops_sorted = sorted(full["ops"], key=lambda o: -o["link_bytes"])
@@ -640,7 +1116,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None
         {k: o[k] for k in ("op", "bytes", "group", "mult", "link_bytes")}
         for o in ops_sorted[:10]
     ]
-    if dots is not None:
+    if audit:
         cell["audit"] = dots.summary()
     if verbose:
         print(f"[{cell['arch']} × {cell['shape']} × {cell['mesh']}] "
@@ -648,6 +1124,33 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *, mesh=None
               f"mem/dev={cell['memory']['per_device_total'] / 2**30:.2f}GiB "
               f"coll_bytes/dev={cell['collectives']['link_bytes_total']:.3g}", flush=True)
     return cell
+
+
+# The reference's own grid (`tools/dryrun_reference.py`: `repro.launch.
+# dryrun.lower_cell` of every cell, lowered for 256 or 512 fake XLA
+# devices), read as data: the port never imports JAX.
+REFERENCE_ROWS = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                              os.pardir, os.pardir, "results", "dryrun_reference.json")
+
+
+def reference_rows(path: str = REFERENCE_ROWS) -> dict:
+    """{(arch, shape, mesh): the reference's row} of a reference grid."""
+    with open(path) as f:
+        return {(r["arch"], r["shape"], r["mesh"]): r for r in json.load(f)}
+
+
+def against_reference(row: dict, ref: dict) -> dict:
+    """The port's row over the reference's: FLOPs, link bytes and memory a
+    device."""
+
+    def ratio(a, b):
+        return a / b if b else (1.0 if a == b else math.inf)
+
+    return {"flops": ratio(row["cost"]["flops"], ref["cost"]["flops"]),
+            "link_bytes": ratio(row["collectives"]["link_bytes_total"],
+                                ref["collectives"]["link_bytes_total"]),
+            "memory": ratio(row["memory"]["per_device_total"],
+                            ref["memory"]["per_device_total"])}
 
 
 def _one(argv) -> int:

@@ -386,9 +386,10 @@ class DotAudit(TorchDispatchMode):
     never reached by the local calls that `DTensor` makes below it.
     ``expected_flops`` sums rank 0's shares and must equal `OpStats`'s
     ``flops``; ``global_flops`` sums G, the step's FLOPs on one rank;
-    ``dots`` groups the ops by (op, global output shape, placements)
-    with their count and the share of G rank 0 executes (1 where the op
-    is replicated over the whole mesh).  An op counts ``scale`` times
+    ``dots`` groups the ops by (op, global output shape, placements, the
+    share of G rank 0 executes: 1 where the op is replicated over the
+    whole mesh) with their count and their summed global and local FLOPs,
+    largest rank-0 FLOPs first.  An op counts ``scale`` times
     (`scaled`)."""
 
     def __init__(self):
@@ -404,20 +405,21 @@ class DotAudit(TorchDispatchMode):
         if func in _DOTS:
             g, local = expected_dot_flops(func, args, kwargs, out)
             placements = tuple(str(p) for p in getattr(out, "placements", ()))
-            key = (func._opname, tuple(out.shape), placements)
+            key = (func._opname, tuple(out.shape), placements, local / g)
             e = self._dots.setdefault(key, {"op": key[0], "shape": list(key[1]),
                                             "placements": list(placements),
-                                            "share": local / g, "count": 0,
-                                            "global_flops": 0.0})
+                                            "share": key[3], "count": 0,
+                                            "global_flops": 0.0, "local_flops": 0.0})
             e["count"] += self.scale
             e["global_flops"] += self.scale * g
+            e["local_flops"] += self.scale * local
             self.expected_flops += self.scale * local
             self.global_flops += self.scale * g
         return out
 
     def summary(self) -> dict:
         return {"expected_flops": self.expected_flops, "global_flops": self.global_flops,
-                "dots": sorted(self._dots.values(), key=lambda e: -e["global_flops"])}
+                "dots": sorted(self._dots.values(), key=lambda e: -e["local_flops"])}
 
 
 def _is_window(t: torch.Tensor) -> bool:

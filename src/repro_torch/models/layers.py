@@ -287,10 +287,11 @@ def chunked_attention(
         return torch.where(ok, 0.0, -math.inf)[None, None, :, :]  # (1, 1, Tq, Tk) f32
 
     def q_block(qi, qblk):
+        # made from the query block, whose layout they take on a mesh
         acc = (
-            torch.full((b, h, qc), -math.inf, dtype=torch.float32, device=dev),
-            torch.zeros((b, h, qc), dtype=torch.float32, device=dev),
-            torch.zeros((b, h, qc, dv), dtype=torch.float32, device=dev),
+            qblk.new_full((b, h, qc), -math.inf, dtype=torch.float32),
+            qblk.new_zeros((b, h, qc), dtype=torch.float32),
+            qblk.new_zeros((b, h, qc, dv), dtype=torch.float32),
         )
         if opts.triangle_skip:
             # only the kv chunks the causal/window mask can reach

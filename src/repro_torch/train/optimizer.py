@@ -22,9 +22,10 @@ no stochastic rounding, as in the reference).
 
 The reference maps a layer-stacked leaf layer by layer (`lax.map`) to
 bound its f32 temporaries; the port holds one tensor per block, and
-updates a leaf of more than ``UPDATE_CHUNK`` elements in slices along
-its first axis (an expert stack, an embedding), each slice's moments
-written into the state's slice.  Every op is elementwise or over the
+updates a leaf of which one device holds more than ``UPDATE_CHUNK``
+elements (a `DTensor`'s local shard, else the whole leaf) in slices
+along its first axis (an expert stack, an embedding), each slice's
+moments written into the state's slice.  Every op is elementwise or over the
 last axis (the int8 scale), so the math is the same.
 """
 from __future__ import annotations
@@ -65,6 +66,14 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 # the most elements a leaf's update takes at once: its f32 temporaries
 # (about ten of them) then stay near 5 GB for the largest leaves
 UPDATE_CHUNK = 1 << 27
+
+
+def _held(t: torch.Tensor) -> int:
+    """The elements of ``t`` one device holds, and so its update's f32
+    temporaries: a `DTensor`'s local shard, else all of them."""
+    from torch.distributed.tensor import DTensor
+
+    return (t.to_local() if isinstance(t, DTensor) else t).numel()
 
 
 # ---- int8 row-wise quantization ---------------------------------------------
@@ -153,7 +162,7 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
         store(v_s, v)
 
     def upd(p, g, m_s, v_s):
-        if p.dim() < 2 or p.numel() <= UPDATE_CHUNK:
+        if p.dim() < 2 or _held(p) <= UPDATE_CHUNK:
             block(p, g, m_s, v_s)
             return
         rows = max(1, UPDATE_CHUNK // p[0].numel())
